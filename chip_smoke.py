@@ -9,17 +9,35 @@ Each phase prints one JSON line:
 1. device: the card's name and power limit (as nvidia-smi prints them, on
    a line of their own too), torch and CUDA versions, and the build time
    of the hand-written kernels, compiled here from the sources in
-   paddle_tpu_torch/csrc by nvcc.
-2. kernels: K1 (flash-attention forward) and K3 (decode attention) held
-   against their plain PyTorch versions on the card at the serving
-   shapes and at edge cases (ragged T, BHTD strides, head dim 64, slot
-   lengths 0, 1 and S), each with its max abs error against a stated
-   tolerance and its device time (REPS calls captured in one CUDA graph,
-   the replay timed by CUDA events), beside the plain version's time and
-   the time of torch's scaled_dot_product_attention on the same inputs
-   (a yardstick only: the port never calls it), taken the same way, and
-   the bound.
-3. slice: the flagship serving config at full width (vocab 32768, 12
+   paddle_tpu_torch/csrc by nvcc, one process per source.
+2. kernels: K1 (flash-attention forward), K2 (its backward: the dq and
+   the dk/dv kernels), K4 (the single-pass backward) and K3 (decode
+   attention) held against their plain PyTorch versions on the card at
+   the training shape (B 16, T 1024, 16 heads of 64, causal, both
+   layouts), the serving shapes and edge cases (ragged T, head dim 128,
+   KV lengths 0, 77, 200; slot lengths 0, 1 and S), each with its max
+   abs error against a stated tolerance and, at the main shapes, its
+   device time (REPS calls captured in one CUDA graph, the replay timed by
+   CUDA events), beside the plain version's time, the bound, and the time
+   of torch's scaled_dot_product_attention on the same inputs (forward;
+   for the backward, forward + backward minus forward), a yardstick only:
+   the port never calls it.
+3. train: the flagship training config (bench.py's LM phase: vocab
+   32768, 12 layers, d_model 1024, 16 heads, d_inner 4096, seq 1024,
+   batch 16, Adam 1e-4), fp32, random weights from the port's own startup
+   program. Startup, 2 warm steps, 5 timed steps through Executor.run:
+   step ms, tokens/s, the loss of every step, peak device memory, and
+   the launches per step (K1, K2-dq and K2-dkv once per layer, K4 never).
+   Then, from one saved state, one step with the kernels, one with the
+   plain attention forward and backward, one with K1's forward and the
+   plain backward, one with PADDLE_TPU_FLASH_FUSED_BWD=1 (K4 once per
+   layer, K2 never) and one in the BHTD layout (PADDLE_TPU_ATTN_BTHD=0):
+   the loss, every @GRAD and every updated parameter against the kernel
+   step, within stated tolerances. Last, one more step under torch.profiler: the device's
+   busy time against the step's wall time (the idle share), busy time by
+   kind (products, attention, other), the top kernels and host ops (the
+   full tables land in build/chip_smoke/train_step_ops.txt).
+4. slice: the flagship serving config at full width (vocab 32768, 12
    layers, d_model 1024, 8 heads, d_inner 4096, max_len 2048), random
    weights from --seed. The export is written with save_decode_model,
    loaded with DecodePredictor and asked for 8 prompts x 64 new tokens.
@@ -28,12 +46,12 @@ Each phase prints one JSON line:
    teacher-forced: they are fed through the same steps again, once with
    the kernels and once with the plain attention, and the logits of every
    step must agree within a stated tolerance. Last, one more generate call
-   runs under torch.profiler: the device's busy time against that call's
-   wall time (the idle share), and the kernels and host ops that take the
-   most (the full op tables land in build/chip_smoke/generate_ops.txt).
+   runs under torch.profiler, as the training step did
+   (build/chip_smoke/generate_ops.txt).
 
-Then one line {"kernels": [...]} (every kernel, with its launches on the
-main path, error, times and bound), the nvidia-smi line, and last
+Then one line with K1's BHTD and K2's pair numbers, one line
+{"kernels": [...]} (every kernel, with its launches on each main path,
+error, times and bound), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure exits non-zero before that.
 Scratch files go to build/chip_smoke/; the export is removed.
 """
@@ -67,6 +85,27 @@ KERNEL_TOL = 1e-4
 # teacher-forced logits, kernel path vs plain path, after 12 layers of
 # fp32 arithmetic: logits are O(1); reordered sums drift ~1e-5
 LOGITS_TOL = 1e-3
+# one training step against another from one saved state. The loss comes
+# out of 12 layers of fp32 sums taken in another order: 1e-4 relative.
+# Each gradient is held to GRAD_RTOL of its own largest element when both
+# steps share K1's forward (the backward kernels against the plain
+# backward on the same saved out and lse; K4 against K2; BHTD against
+# BTHD). Against the all-plain step the forward's saved out and lse differ
+# in their last bits (K1 sums its softmax tile by tile), and at this init
+# attention is near uniform over keys that share a large common part, so
+# dq and dk are sums whose terms nearly cancel (sum_j dS_ij = 0): they,
+# and through the residual stream every layer below, move by ~1e-4 of
+# their size (median 1.4e-4, worst 3.3e-3 on an H100 at the training
+# config): PATH_GRAD_RTOL. A key projection's bias
+# has a gradient that is zero up to rounding (softmax does not see a
+# per-query constant): held to 1e-5 of the largest gradient instead.
+# Parameters after the Adam update: Adam divides each gradient by its
+# running RMS, so an element with a near-zero gradient moves by a
+# different fraction of lr: lr/10.
+LOSS_RTOL = 1e-4
+GRAD_RTOL = 1e-3
+PATH_GRAD_RTOL = 1e-2
+ZERO_GRAD_TOL = 1e-5
 # calls per timed measurement
 REPS = 30
 
@@ -74,6 +113,14 @@ REPS = 30
 FULL_CONFIG = dict(vocab_size=32768, n_layer=12, n_head=8, d_model=1024,
                    d_inner=4096, max_len=2048)
 N_PROMPTS, MAX_NEW = 8, 64
+
+# the flagship training config: bench.py's LM phase (bench.py:80-92,
+# bench_lm), full width and depth, 16 heads of 64, in fp32 where bench.py
+# runs bf16 AMP O2
+TRAIN_CONFIG = dict(vocab_size=32768, n_layer=12, n_head=16, d_model=1024,
+                    d_inner=4096, max_len=1024)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 16, 1024, 1e-4
+WARM_STEPS, TIMED_STEPS = 2, 5
 
 
 def fail(msg):
@@ -137,6 +184,20 @@ def flash_work(b, h, t, tk, d, causal, lengths=None):
     return flops, nbytes
 
 
+def flash_bwd_work(b, h, t, tk, d, causal, lengths=None, products=5):
+    """FLOPs and bytes the attention backward needs on these inputs: five
+    products of 2*d FLOPs per (query, valid key) pair (recompute S, dP,
+    dV, dK, dQ); q, k, v, dO, lse and delta read once, dq, dk, dv written
+    once. ``products`` 3 is dq alone (S, dP, dQ; writes dq), 4 is dk/dv
+    alone (S, dP, dV, dK; writes dk, dv)."""
+    fwd_flops, _ = flash_work(b, h, t, tk, d, causal, lengths)
+    flops = fwd_flops / 2 * products
+    rows, keys = b * t * h * d, b * tk * h * d
+    out = {5: rows + 2 * keys, 3: rows, 4: 2 * keys}[products]
+    nbytes = 4.0 * (2 * rows + 2 * keys + 2 * b * h * t + out)
+    return flops, nbytes
+
+
 def decode_work(b, h, d, lengths):
     """FLOPs and bytes one decode-attention call needs: each live K and V
     row read once (the kernel stops at the length), q and out once."""
@@ -192,6 +253,101 @@ def check_flash(torch, gen, dev, b, t, h, d, causal, layout, lengths=None,
         flops, nbytes = flash_work(b, h, t, t, d, causal, lengths)
         res["bound_ms"], res["bound_by"] = bound(flops, nbytes)
         res["gflop"], res["mbytes"] = flops / 1e9, nbytes / 1e6
+    emit(res)
+    return res
+
+
+def sdpa_backend(torch, fn):
+    """The attention kernels that one call of ``fn`` ran, by name (which
+    of scaled_dot_product_attention's backends took fp32 inputs)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA]
+    hits = [n for n in names if any(w in n.lower() for w in (
+        "fmha", "attention", "flash", "efficient", "cudnn", "softmax"))]
+    return sorted(hits or names)[:4]
+
+
+def check_flash_bwd(torch, gen, dev, b, t, h, d, causal, layout,
+                    lengths=None, time_it=False):
+    """K2 (dq, then dk/dv) and K4 against flash_attention_bwd_plain on the
+    same inputs: q, k, v, dO ~ N(0, 1), out and lse from K1. Each gradient
+    is held to KERNEL_TOL of its own largest element (at least 1); K4's
+    dq sums with atomics, in an order that changes from run to run."""
+    from paddle_tpu_torch.ops import attention as A
+
+    shape = (b, t, h, d) if layout == "bthd" else (b, h, t, d)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
+                   for _ in range(4))
+    lens = None
+    if lengths is not None:
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    out, lse = A.flash_attention_fwd(q, k, v, causal, None, lens, layout)
+    delta = A.attention_delta(out, do, layout)
+    args = (q, k, v, lse, delta, do, causal, None, lens, layout)
+    split = (A.flash_attention_bwd_dq(*args),) + A.flash_attention_bwd_dkv(*args)
+    fused = A.flash_attention_bwd_fused(*args)
+    ref = A.flash_attention_bwd_plain(q, k, v, out, lse, do, causal, None,
+                                      lens, layout)
+    torch.cuda.synchronize()
+    res = {"case": "K2/K4", "shape": list(shape), "layout": layout,
+           "causal": causal, "lengths": lengths, "tol": KERNEL_TOL}
+    worst = {"K2": 0.0, "K4": 0.0}
+    for key, got in (("K2", split), ("K4", fused)):
+        for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+            err = float((g - r).abs().max())
+            scale = max(1.0, float(r.abs().max()))
+            res["%s_%s_err" % (key, name)] = err
+            worst[key] = max(worst[key], err)
+            if not bool(torch.isfinite(g).all()) or err > KERNEL_TOL * scale:
+                fail("%s %s disagrees with the plain backward at %s causal=%s "
+                     "%s lengths %s: err %.3g (tolerance %g x %.3g), finite: "
+                     "%s" % (key, name, shape, causal, layout, lengths, err,
+                             KERNEL_TOL, scale, bool(torch.isfinite(g).all())))
+        if lengths is not None:
+            for i, n in enumerate(lengths):
+                if n == 0 and not all(bool((g[i] == 0).all()) for g in got):
+                    fail("%s: a length-0 row has nonzero gradients" % key)
+    res["K2_max_abs_err"], res["K4_max_abs_err"] = worst["K2"], worst["K4"]
+    if time_it:
+        tf = torch.nn.functional
+        res["dq_ms"] = time_ms(lambda: A.flash_attention_bwd_dq(*args))
+        res["dkv_ms"] = time_ms(lambda: A.flash_attention_bwd_dkv(*args))
+        res["pair_ms"] = time_ms(lambda: (A.flash_attention_bwd_dq(*args),
+                                          A.flash_attention_bwd_dkv(*args)))
+        res["fused_ms"] = time_ms(lambda: A.flash_attention_bwd_fused(*args))
+        res["plain_ms"] = time_ms(lambda: A.flash_attention_bwd_plain(
+            q, k, v, out, lse, do, causal, None, lens, layout))
+        # the library yardstick: scaled_dot_product_attention's backward,
+        # (forward + backward) - forward, on the same fp32 inputs
+        qt, kt, vt = (x.transpose(1, 2) if layout == "bthd" else x
+                      for x in (q, k, v))
+        qt, kt, vt = (x.detach().requires_grad_() for x in (qt, kt, vt))
+        dot = do.transpose(1, 2) if layout == "bthd" else do
+
+        def sdpa_fwd():
+            return tf.scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=causal)
+
+        def sdpa_fwd_bwd():
+            return torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dot)
+
+        res["library_fwd_bwd_ms"] = time_ms(sdpa_fwd_bwd)
+        res["library_fwd_ms"] = time_ms(sdpa_fwd)
+        res["library_ms"] = res["library_fwd_bwd_ms"] - res["library_fwd_ms"]
+        res["library_kernels"] = sdpa_backend(torch, sdpa_fwd_bwd)
+        for key, products in (("pair", 5), ("dq", 3), ("dkv", 4)):
+            flops, nbytes = flash_bwd_work(b, h, t, t, d, causal, lengths,
+                                           products)
+            res["%s_bound_ms" % key], res["%s_bound_by" % key] = \
+                bound(flops, nbytes)
+        res["gflop"] = flash_bwd_work(b, h, t, t, d, causal, lengths)[0] / 1e9
     emit(res)
     return res
 
@@ -278,20 +434,42 @@ def init_params(config, seed):
 
 
 @contextlib.contextmanager
-def plain_attention():
-    """Run the two kernel-backed ops through their plain PyTorch versions
-    (the teacher-forced reference path)."""
+def plain_attention(forward_kernel=False):
+    """Run the kernel-backed ops through their plain PyTorch versions (the
+    reference path): fused_attention through flash_attention_plain (or,
+    with ``forward_kernel``, through K1) and, when a gradient is asked
+    for, flash_attention_bwd_plain; decode_attention through
+    decode_attention_plain."""
+    import torch
     from paddle_tpu_torch.ops import registry
-    from paddle_tpu_torch.ops.attention import flash_attention_plain
+    from paddle_tpu_torch.ops.attention import (flash_attention_bwd_plain,
+                                                flash_attention_fwd,
+                                                flash_attention_plain)
     from paddle_tpu_torch.ops.kv_cache import decode_attention_plain
 
+    fwd = flash_attention_fwd if forward_kernel else flash_attention_plain
+
+    class PlainAttention(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, lengths, causal, scale, layout):
+            out, lse = fwd(q, k, v, causal, scale, lengths, layout)
+            ctx.save_for_backward(q, k, v, out, lse, lengths)
+            ctx.args = (causal, scale, layout)
+            return out
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, out, lse, lengths = ctx.saved_tensors
+            causal, scale, layout = ctx.args
+            return flash_attention_bwd_plain(
+                q, k, v, out, lse, do, causal, scale, lengths, layout) + \
+                (None,) * 4
+
     def fused(ctx):
-        out, _ = flash_attention_plain(
+        return {"Out": PlainAttention.apply(
             ctx.input("Q"), ctx.input("K"), ctx.input("V"),
-            causal=bool(ctx.attr("causal", False)),
-            scale=ctx.attr("scale", None), lengths=ctx.input("Lengths"),
-            layout=str(ctx.attr("layout", "bhtd")).lower())
-        return {"Out": out}
+            ctx.input("Lengths"), bool(ctx.attr("causal", False)),
+            ctx.attr("scale", None), str(ctx.attr("layout", "bhtd")).lower())}
 
     def decode(ctx):
         return {"Out": decode_attention_plain(
@@ -306,6 +484,20 @@ def plain_attention():
     finally:
         registry.KERNELS.clear()
         registry.KERNELS.update(saved)
+
+
+@contextlib.contextmanager
+def env_set(name, value):
+    """Set one environment variable for the duration of a block."""
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name)
+        else:
+            os.environ[name] = old
 
 
 def teacher_forced_logits(pred, prompts, generated, max_new):
@@ -425,11 +617,32 @@ def run_slice(config, prompt_lens, max_new, seed, place, workdir):
 
 
 def profile_generate(pred, prompts, max_new, out_dir):
-    """One more generate call under torch.profiler: the device's busy time
-    (the sum of its kernels and copies), the call's wall time, the idle
-    share they give (both from this one call; the profiler slows the host,
-    so the unprofiled call idles less), and the kernels and host ops that
-    take the most. Writes both op tables to ``out_dir``/generate_ops.txt."""
+    """One more generate call under torch.profiler (see profile_call);
+    the op tables land in ``out_dir``/generate_ops.txt."""
+    return profile_call(
+        lambda: pred.generate(prompts, max_new_tokens=max_new),
+        os.path.join(out_dir, "generate_ops.txt"))
+
+
+def _kernel_kind(name):
+    """products (cuBLAS/CUTLASS matrix products), attention (the port's
+    hand-written kernels), or other (elementwise, reductions, copies)."""
+    low = name.lower()
+    if low.startswith(("flash_", "decode_attn")) or "flash_bwd" in low \
+            or "flash_fwd" in low or "decode_attn" in low:
+        return "attention"
+    if any(w in low for w in ("gemm", "xmma", "cutlass", "cublas")):
+        return "products"
+    return "other"
+
+
+def profile_call(fn, table_path):
+    """One call of ``fn`` under torch.profiler: the device's busy time (the
+    sum of its kernels and copies), the call's wall time, the idle share
+    they give (both from this one call; the profiler slows the host, so
+    an unprofiled call idles less), busy time by kind of kernel, and the
+    kernels and host ops that take the most. Writes both op tables to
+    ``table_path``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -438,7 +651,7 @@ def profile_generate(pred, prompts, max_new, out_dir):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pred.generate(prompts, max_new_tokens=max_new)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
@@ -447,18 +660,202 @@ def profile_generate(pred, prompts, max_new, out_dir):
     host = sorted((e for e in events if e.device_type == DeviceType.CPU),
                   key=lambda e: -e.self_cpu_time_total)
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
-    with open(os.path.join(out_dir, "generate_ops.txt"), "w") as f:
+    by_kind = {"products": 0.0, "attention": 0.0, "other": 0.0}
+    for e in dev:
+        by_kind[_kernel_kind(e.key)] += e.self_device_time_total / 1e3
+    with open(table_path, "w") as f:
         f.write(events.table(sort_by="self_cuda_time_total", row_limit=40))
         f.write("\n")
         f.write(events.table(sort_by="self_cpu_time_total", row_limit=40))
     return {
         "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
+        "device_ms_by_kind": by_kind,
         "device_top": [[e.key[:80], e.count, e.self_device_time_total / 1e3]
                        for e in dev[:15]],
         "host_top": [[e.key[:80], e.count, e.self_cpu_time_total / 1e3]
                      for e in host[:15]],
     }
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the training slice at full width
+# ---------------------------------------------------------------------------
+
+
+def build_train(config, batch, seq, lr, seed):
+    """transformer_lm + Adam(lr).minimize, built as a user would: returns
+    (main, startup, loss)."""
+    from paddle_tpu_torch import (Program, layers, optimizer, program_guard,
+                                  unique_name)
+    from paddle_tpu_torch.models import transformer
+
+    main, startup = Program(), Program()
+    main.random_seed = startup.random_seed = seed
+    with program_guard(main, startup), unique_name.guard():
+        ids = layers.data(name="ids", shape=[batch, seq], dtype="int64",
+                          append_batch_size=False)
+        labels = layers.data(name="labels", shape=[batch, seq],
+                             dtype="int64", append_batch_size=False)
+        loss, _ = transformer.transformer_lm(ids, labels, **config)
+        optimizer.Adam(learning_rate=lr).minimize(loss)
+    return main, startup, loss
+
+
+def _launch_counts(reset=False):
+    from paddle_tpu_torch.ops import attention as A
+
+    wrappers = {"K1": A.flash_attention_fwd, "K2-dq": A.flash_attention_bwd_dq,
+                "K2-dkv": A.flash_attention_bwd_dkv,
+                "K4": A.flash_attention_bwd_fused}
+    if reset:
+        for w in wrappers.values():
+            w.launches = 0
+    return {k: w.launches for k, w in wrappers.items()}
+
+
+def compare_steps(got, ref, lr, grad_rtol=GRAD_RTOL):
+    """One training step against another from the same state: the loss,
+    every @GRAD and every updated parameter, with the tolerances stated at
+    the top of this file. Returns the measured errors and ``ok``."""
+    import torch
+
+    (lg, gg, pg), (lr_, gr, pr) = got, ref
+    big = max(float(g.abs().max()) for g in gr.values())
+    res = {"loss": float(lg), "ref_loss": float(lr_),
+           "loss_rel_err": abs(float(lg) - float(lr_)) / abs(float(lr_))}
+    worst, bad, errs = (0.0, None), [], []
+    for name in gr:
+        a, b = gg[name], gr[name]
+        finite = bool(torch.isfinite(a).all())
+        if name.endswith(".k.b@GRAD"):
+            err = max(float(a.abs().max()), float(b.abs().max())) / big
+            tol = ZERO_GRAD_TOL
+        else:
+            err = float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                   1e-30)
+            tol = grad_rtol
+            errs.append(err)
+        if err / tol > worst[0]:
+            worst = (err / tol, name)
+        if not finite or err > tol:
+            bad.append((name, err, tol, finite))
+    res["grad_rtol"] = grad_rtol
+    res["grad_rel_err_median"] = float(np.median(errs))
+    res["grad_worst_share_of_tol"], res["grad_worst"] = worst
+    res["param_max_abs_err"] = max(float((pg[n] - pr[n]).abs().max())
+                                   for n in pr)
+    res["param_tol"] = lr / 10
+    res["grads_over_tol"] = bad[:5]
+    res["ok"] = (not bad and res["loss_rel_err"] <= LOSS_RTOL
+                 and res["param_max_abs_err"] <= lr / 10
+                 and all(bool(torch.isfinite(p).all()) for p in pg.values()))
+    return res
+
+
+def run_train(config, batch, seq, lr, warm, steps, seed, place, workdir):
+    """Train ``config`` as a user would (build, startup, Executor.run step
+    after step on one seeded batch, as bench.py does), then: one step with
+    the kernels, one with the plain attention forward and backward, one
+    with K1's forward and the plain backward, one with
+    PADDLE_TPU_FLASH_FUSED_BWD=1 and one in the BHTD layout
+    (PADDLE_TPU_ATTN_BTHD=0), each from the same saved state and compared
+    with the kernel step; on the card, one more step under torch.profiler.
+    Runs on any place (the CPU tests rehearse it at a tiny size); the
+    caller checks the kernel launch counts."""
+    import torch
+    from paddle_tpu_torch import Executor, Scope
+
+    t0 = time.perf_counter()
+    main, startup, loss = build_train(config, batch, seq, lr, seed)
+    exe, scope = Executor(place), Scope()
+    exe.run(startup, scope=scope)
+    cuda = exe.device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    params = [p.name for p in main.all_parameters()]
+    grads = [n + "@GRAD" for n in params]
+    n_params = sum(scope.find_var(n).numel() for n in params)
+    rng = np.random.default_rng(seed + 2)
+    feed = {k: torch.from_numpy(rng.integers(
+        0, config["vocab_size"], (batch, seq))).to(exe.device)
+        for k in ("ids", "labels")}
+    sync()
+    setup_s = time.perf_counter() - t0
+
+    losses = [float(exe.run(main, feed, [loss], scope=scope)[0])
+              for _ in range(warm)]
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    _launch_counts(reset=True)
+    step_ms = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(exe.run(main, feed, [loss], scope=scope)[0]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: n // steps if n % steps == 0 else n / steps
+                for k, n in _launch_counts().items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    if not all(np.isfinite(losses)):
+        fail("training losses are not finite: %s" % losses)
+
+    # the same step from one saved state, by four paths (nothing in the
+    # scope is updated in place, so the saved tensors stay as they are)
+    saved = {v.name: scope.find_var(v.name) for v in main.list_vars()
+             if v.persistable}
+
+    def one_step(program, ctx):
+        for name, val in saved.items():
+            scope.set_var(name, val)
+        _launch_counts(reset=True)
+        with ctx:
+            outs = exe.run(program, feed, [loss] + grads, scope=scope,
+                           return_numpy=False)
+        sync()
+        return ((outs[0], dict(zip(grads, outs[1:])),
+                 {n: scope.find_var(n) for n in params}), _launch_counts())
+
+    kernel, kernel_launches = one_step(main, contextlib.nullcontext())
+    plain, _ = one_step(main, plain_attention())
+    plain_bwd, _ = one_step(main, plain_attention(forward_kernel=True))
+    fused, fused_launches = one_step(
+        main, env_set("PADDLE_TPU_FLASH_FUSED_BWD", "1"))
+    with env_set("PADDLE_TPU_ATTN_BTHD", "0"):
+        main_bhtd, _, _ = build_train(config, batch, seq, lr, seed)
+    bhtd, bhtd_launches = one_step(main_bhtd, contextlib.nullcontext())
+    res = {
+        "phase": "train", "config": config, "batch": batch, "seq": seq,
+        "lr": lr, "params": n_params, "setup_s": setup_s,
+        "warm_steps": warm, "steps": steps, "step_ms": step_ms,
+        "step_ms_mean": float(np.mean(step_ms)),
+        "tokens_per_s": batch * seq / (float(np.mean(step_ms)) / 1e3),
+        "losses": losses, "peak_mem_gb": peak,
+        "launches_per_step": launches,
+        "kernel_step_launches": kernel_launches,
+        "kernels_vs_plain": compare_steps(kernel, plain, lr,
+                                          PATH_GRAD_RTOL),
+        "bwd_kernels_vs_plain_bwd": compare_steps(kernel, plain_bwd, lr),
+        "fused_bwd_launches": fused_launches,
+        "fused_bwd_vs_kernels": compare_steps(fused, kernel, lr),
+        "bhtd_launches": bhtd_launches,
+        "bhtd_vs_bthd": compare_steps(bhtd, kernel, lr),
+    }
+    del kernel, plain, plain_bwd, fused, bhtd
+    for key in ("kernels_vs_plain", "bwd_kernels_vs_plain_bwd",
+                "fused_bwd_vs_kernels", "bhtd_vs_bthd"):
+        if not res[key]["ok"]:
+            fail("training step %s failed: %s" % (key, json.dumps(res[key])))
+    if cuda:
+        for name, val in saved.items():
+            scope.set_var(name, val)
+        res["profile"] = profile_call(
+            lambda: exe.run(main, feed, [loss], scope=scope),
+            os.path.join(workdir, "train_step_ops.txt"))
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -510,12 +907,29 @@ def main(argv=None):
     prompt_lens[0] = 1000  # pins the prefill bucket at T=1024
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
-    k1 = check_flash(torch, gen, dev, 8, 1024, 8, 128, True, "bthd",
+    tc = TRAIN_CONFIG
+    tb, tt, th = TRAIN_BATCH, TRAIN_SEQ, tc["n_head"]
+    td = tc["d_model"] // th
+    # K1 at the training shape in both layouts and at the serving shape
+    k1 = check_flash(torch, gen, dev, tb, tt, th, td, True, "bthd",
                      time_it=True)
+    k1_bhtd = check_flash(torch, gen, dev, tb, tt, th, td, True, "bhtd",
+                          time_it=True)
+    check_flash(torch, gen, dev, 8, 1024, 8, 128, True, "bthd", time_it=True)
     check_flash(torch, gen, dev, 8, 200, 8, 128, False, "bthd")
-    check_flash(torch, gen, dev, 2, 1024, 8, 128, True, "bhtd")
     check_flash(torch, gen, dev, 3, 200, 4, 64, True, "bhtd",
                 lengths=[0, 77, 200])
+    # K2 and K4 at the training shape in both layouts, and edge cases
+    bwd = check_flash_bwd(torch, gen, dev, tb, tt, th, td, True, "bthd",
+                          time_it=True)
+    check_flash_bwd(torch, gen, dev, tb, tt, th, td, True, "bhtd",
+                    time_it=True)
+    check_flash_bwd(torch, gen, dev, 2, 200, 4, 64, False, "bthd")
+    check_flash_bwd(torch, gen, dev, 2, 200, 2, 128, True, "bthd")
+    check_flash_bwd(torch, gen, dev, 3, 200, 4, 64, True, "bhtd",
+                    lengths=[0, 77, 200])
+    check_flash_bwd(torch, gen, dev, 3, 200, 2, 128, False, "bthd",
+                    lengths=[0, 77, 200])
     S = 2048
     k3 = check_decode(torch, gen, dev, 8, S, 8, 128,
                       [int(n) + MAX_NEW - 1 for n in prompt_lens],
@@ -528,6 +942,24 @@ def main(argv=None):
     os.makedirs(workdir, exist_ok=True)
     from paddle_tpu_torch import CUDAPlace
 
+    tr = run_train(TRAIN_CONFIG, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR,
+                   WARM_STEPS, TIMED_STEPS, args.seed, CUDAPlace(0), workdir)
+    tr["gpu"] = smi
+    emit(tr)
+    n_layer = TRAIN_CONFIG["n_layer"]
+    want = {"K1": n_layer, "K2-dq": n_layer, "K2-dkv": n_layer, "K4": 0}
+    if tr["launches_per_step"] != want or tr["kernel_step_launches"] != want:
+        fail("kernel launches per training step %s, expected %s"
+             % (tr["launches_per_step"], want))
+    want_fused = {"K1": n_layer, "K2-dq": 0, "K2-dkv": 0, "K4": n_layer}
+    if tr["fused_bwd_launches"] != want_fused:
+        fail("launches with the fused backward %s, expected %s"
+             % (tr["fused_bwd_launches"], want_fused))
+    if tr["bhtd_launches"] != want:
+        fail("launches in the BHTD layout %s, expected %s"
+             % (tr["bhtd_launches"], want))
+    torch.cuda.empty_cache()
+
     sl = run_slice(FULL_CONFIG, prompt_lens, MAX_NEW, args.seed,
                    CUDAPlace(0), workdir)
     sl["gpu"] = smi
@@ -539,19 +971,62 @@ def main(argv=None):
         fail("kernel launches on the main path %s, expected %s"
              % (sl["launches"], want))
 
-    kernels = []
-    for key, res, src, replaces in (
-            ("K1", k1, "paddle_tpu_torch/csrc/flash_fwd.cu",
-             "paddle_tpu/ops/attention.py:172"),
-            ("K3", k3, "paddle_tpu_torch/csrc/decode_attn.cu",
-             "paddle_tpu/ops/kv_cache.py:88")):
-        kernels.append({
-            "name": {"K1": "flash_fwd", "K3": "decode_attn"}[key],
-            "route": "cuda", "source": src, "replaces": replaces,
-            "launches": sl["launches"][key],
-            "max_abs_err": res["max_abs_err"], "ms": res["ms"],
-            "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
-            "bound_by": res["bound_by"], "library_ms": res["library_ms"]})
+    # each kernel: its launches on each main path (one training step; the
+    # fused-backward step and the BHTD step; one generate call), its error
+    # and times at the training shape (K3: the serving shape)
+    def entry(name, src, replaces, by_path, err, ms, plain_ms, bnd,
+              library_ms):
+        by_path = {k: v for k, v in by_path.items() if v}
+        return {"name": name, "route": "cuda", "source": src,
+                "replaces": replaces, "launches": sum(by_path.values()),
+                "launches_by_path": by_path, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": library_ms}
+
+    csrc = "paddle_tpu_torch/csrc/"
+    per_step, fused_step = tr["launches_per_step"], tr["fused_bwd_launches"]
+    kernels = [
+        entry("flash_fwd", csrc + "flash_fwd.cu",
+              "paddle_tpu/ops/attention.py:172",
+              {"train_step": per_step["K1"],
+               "train_step_bhtd": tr["bhtd_launches"]["K1"],
+               "generate": sl["launches"]["K1"]},
+              k1["max_abs_err"], k1["ms"], k1["plain_ms"],
+              (k1["bound_ms"], k1["bound_by"]), k1["library_ms"]),
+        entry("flash_bwd_dq", csrc + "flash_bwd.cu",
+              "paddle_tpu/ops/attention.py:216",
+              {"train_step": per_step["K2-dq"],
+               "train_step_bhtd": tr["bhtd_launches"]["K2-dq"]},
+              bwd["K2_max_abs_err"], bwd["dq_ms"], bwd["plain_ms"],
+              (bwd["dq_bound_ms"], bwd["dq_bound_by"]), None),
+        entry("flash_bwd_dkv", csrc + "flash_bwd.cu",
+              "paddle_tpu/ops/attention.py:246",
+              {"train_step": per_step["K2-dkv"],
+               "train_step_bhtd": tr["bhtd_launches"]["K2-dkv"]},
+              bwd["K2_max_abs_err"], bwd["dkv_ms"], bwd["plain_ms"],
+              (bwd["dkv_bound_ms"], bwd["dkv_bound_by"]), None),
+        entry("decode_attn", csrc + "decode_attn.cu",
+              "paddle_tpu/ops/kv_cache.py:88",
+              {"generate": sl["launches"]["K3"]},
+              k3["max_abs_err"], k3["ms"], k3["plain_ms"],
+              (k3["bound_ms"], k3["bound_by"]), k3["library_ms"]),
+        entry("flash_bwd_fused", csrc + "flash_bwd_fused.cu",
+              "paddle_tpu/ops/attention.py:282",
+              {"train_step_fused_bwd": fused_step["K4"]},
+              bwd["K4_max_abs_err"], bwd["fused_ms"], bwd["plain_ms"],
+              (bwd["pair_bound_ms"], bwd["pair_bound_by"]),
+              bwd["library_ms"]),
+    ]
+    for k in kernels:
+        if not k["launches"]:
+            fail("kernel %s was launched no time on the main path"
+                 % k["name"])
+    emit({"k1_bhtd": {key: k1_bhtd[key] for key in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        "k2_pair": {"ms": bwd["pair_ms"], "plain_ms": bwd["plain_ms"],
+                    "library_ms": bwd["library_ms"],
+                    "bound_ms": bwd["pair_bound_ms"],
+                    "bound_by": bwd["pair_bound_by"]}})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -7,9 +7,15 @@ Hopper under csrc/, built on first use (kernels/_build.py). This package
 imports torch and numpy, never jax and never paddle_tpu.
 
 Ported so far: serving the decoder LM (serving/decode.py) through the
-flash-attention prefill kernel (K1) and the decode-attention kernel (K3).
+flash-attention prefill kernel (K1) and the decode-attention kernel (K3),
+and training it (``Executor.run`` of a program built with
+``optimizer.Adam(...).minimize``) through K1 and the flash-attention
+backward kernels (K2, or K4 with ``PADDLE_TPU_FLASH_FUSED_BWD=1``).
 """
-from . import framework, initializer, io, layers
+from . import (backward, clip, framework, initializer, io, layers,
+               optimizer, regularizer)
+from .backward import append_backward
+from .executor import Executor
 from .framework import (
     CPUPlace,
     CUDAPlace,
@@ -25,8 +31,9 @@ from .framework import (
 from .param_attr import ParamAttr
 
 __all__ = [
-    "CPUPlace", "CUDAPlace", "ParamAttr", "Program", "Scope",
-    "default_main_program", "default_startup_program", "framework",
-    "global_scope", "initializer", "io", "layers", "program_guard",
+    "CPUPlace", "CUDAPlace", "Executor", "ParamAttr", "Program", "Scope",
+    "append_backward", "backward", "clip", "default_main_program",
+    "default_startup_program", "framework", "global_scope", "initializer",
+    "io", "layers", "optimizer", "program_guard", "regularizer",
     "scope_guard", "unique_name",
 ]

@@ -3,7 +3,8 @@
 Each source under ``paddle_tpu_torch/csrc/`` is compiled by ``nvcc`` for
 Hopper (``sm_90a``) into its own shared library with a plain C interface,
 and loaded with ``ctypes``. A library's file name carries a hash of its
-source, so an edited source rebuilds and an unchanged one is reused. The
+source and of the shared headers there, so an edited source or header
+rebuilds and an unchanged one is reused. The
 build runs at first use, into ``build/paddle_tpu_torch/`` beside the
 package; ``build_all()`` starts one ``nvcc`` per source, all at once.
 
@@ -26,7 +27,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "build_all", "load"]
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "paddle_tpu_torch")
-SOURCES = ("flash_fwd", "decode_attn")
+SOURCES = ("flash_fwd", "decode_attn", "flash_bwd", "flash_bwd_fused")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -44,8 +45,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(_CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, named by a hash of its source, the shared
+    headers (``*.cuh``) it may include, and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh"))
+    for fname in [name + ".cu"] + headers:
+        with open(os.path.join(_CSRC, fname), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, "lib%s-%s.so" % (name, digest.hexdigest()[:12]))
 
 

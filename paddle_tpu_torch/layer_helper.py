@@ -73,6 +73,21 @@ class LayerHelper:
             stop_gradient=stop_gradient,
         )
 
+    def create_global_variable(self, persistable=False, *args, **kwargs):
+        return self.main_program.global_block().create_var(
+            *args, persistable=persistable, **kwargs
+        )
+
+    def set_variable_initializer(self, var, initializer):
+        """Create the same var in startup program and init it there."""
+        startup_block = self.startup_program.global_block()
+        if var.name not in startup_block.vars:
+            svar = startup_block.create_var(
+                name=var.name, shape=var.shape, dtype=var.dtype, persistable=True
+            )
+            initializer(svar, startup_block)
+        return var
+
     def append_op(self, **kwargs):
         return self.main_program.current_block().append_op(**kwargs)
 

@@ -1,6 +1,6 @@
 """layers.nn (reference: python/paddle/fluid/layers/nn.py).
 
-The builders the decoder LM's serving programs use, with the JAX package's
+The builders the decoder LM's programs use, with the JAX package's
 signatures and the same emitted op descs (so both packages serialize a
 built program identically). Kernels live in paddle_tpu_torch/ops/*.
 """
@@ -22,6 +22,8 @@ __all__ = [
     "decode_attention",
     "cache_append",
     "greedy_sample",
+    "mean",
+    "fused_lm_head_loss",
 ]
 
 # the JAX package's default ``block_k`` attr: it rides the op desc (so
@@ -277,3 +279,52 @@ def greedy_sample(logits, name=None):
     helper.append_op(type="greedy_sample", inputs={"Logits": [logits]},
                      outputs={"Out": [out]}, attrs={})
     return out
+
+
+def mean(x, name=None):
+    helper = LayerHelper("mean", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype, shape=())
+    helper.append_op(type="mean", inputs={"X": [x]}, outputs={"Out": [out]})
+    return out
+
+
+def fused_lm_head_loss(input, label, size, param_attr=None, bias_attr=None,
+                       block_v=4096, transpose_w=False, name=None):
+    """Fused vocabulary projection + softmax-cross-entropy: the per-token
+    loss of `fc(input, size)` against `label` without the (N, vocab)
+    logits (kernel: ops/fused_loss.py, chunked online logsumexp with its
+    own backward). input: (..., D); label: (...,) or (..., 1) int ids;
+    returns (N, 1) fp32 loss, N = prod of input's leading dims.
+    transpose_w=True declares the weight as (size, D), the tied-embedding
+    layout: a param_attr naming the token-embedding table makes the head
+    project through that same parameter."""
+    helper = LayerHelper("fused_lm_head_loss", **locals())
+    dtype = helper.input_dtype()
+    d = input.shape[-1]
+    w_shape = [size, d] if transpose_w else [d, size]
+    w = helper.create_parameter(
+        attr=helper.param_attr, shape=w_shape, dtype=dtype, is_bias=False)
+    if list(w.shape) != w_shape:
+        # create_parameter reuses an existing param by name whatever the
+        # requested shape (the tied path relies on it): a wrong transpose_w
+        # for the named table shows here
+        raise ValueError(
+            "fused_lm_head_loss: reused parameter %r has shape %s but "
+            "transpose_w=%s requires %s" %
+            (w.name, list(w.shape), bool(transpose_w), w_shape))
+    inputs = {"X": [input], "W": [w], "Label": [label]}
+    bias_attr = helper.bias_attr
+    if bias_attr is not False:
+        b = helper.create_parameter(
+            attr=bias_attr, shape=[size], dtype=dtype, is_bias=True)
+        inputs["Bias"] = [b]
+    lead = input.shape[:-1]
+    n = -1 if any(s < 0 for s in lead) else _prod(lead)
+    loss = helper.create_variable_for_type_inference("float32", shape=(n, 1))
+    helper.append_op(
+        type="fused_lm_head_loss",
+        inputs=inputs,
+        outputs={"Loss": [loss]},
+        attrs={"block_v": block_v, "transpose_w": bool(transpose_w)},
+    )
+    return loss

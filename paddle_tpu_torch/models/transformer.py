@@ -1,15 +1,26 @@
-"""The flagship decoder LM's serving graphs (counterpart of
-paddle_tpu/models/transformer.py).
+"""The flagship decoder LM's graphs (counterpart of
+paddle_tpu/models/transformer.py): the training graph ``transformer_lm``
+with its ``multi_head_attention`` and ``decoder_layer``, and the serving
+graphs ``transformer_lm_prefill`` and ``transformer_lm_decode``.
 
-Both builders re-create ``transformer_lm``'s parameter set NAME-FOR-NAME
+``transformer_lm`` builds the JAX package's program op for op (fused
+attention in the BTHD layout, or BHTD under ``PADDLE_TPU_ATTN_BTHD=0``;
+the fused LM head, tied or not), so both packages serialize the same
+program and name the same parameters (a test pins it). The serving
+builders re-create ``transformer_lm``'s parameter set NAME-FOR-NAME
 (explicitly named projections AND the auto-named layer_norm_N scale/bias
-pairs), so a scope trained through the JAX package's ``transformer_lm``
+pairs), so a scope trained through either package's ``transformer_lm``
 loads into them directly. That only holds when the layer-creation ORDER
 matches exactly: build under ``unique_name.guard()`` and keep the
-layer_norm call sequence identical (2 per layer + 1 final). The built
-programs serialize identically to the JAX builders' (a test pins it).
+layer_norm call sequence identical (2 per layer + 1 final).
+
+Not ported yet: ring attention, fused q/k/v projections, the unfused
+attention and LM-head paths, cross-attention (the encoder-decoder model),
+mixture-of-experts FFNs and dropout; each raises NotImplementedError.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -88,6 +99,106 @@ def _cached_self_attention(h, n_head, d_model, name, k_cache=None,
     out = _linear(layers.reshape(ctx, shape=[B, T, d_model]),
                   d_model, name + ".out")
     return out, new_k, new_v
+
+
+def multi_head_attention(
+    q_in, kv_in, n_head, d_model, dropout_rate=0.0, causal=False,
+    kv_lengths=None, name=None, use_fused=True, use_ring=False,
+    sp_axis="sp", fused_qkv=False,
+):
+    """(B, Tq, D) x (B, Tk, D) -> (B, Tq, D) through the fused_attention
+    op (flash attention: K1 forward, K2 or K4 backward on the card). The
+    heads go to the op in the BTHD layout, the projection's own shape, or
+    transposed to BHTD under PADDLE_TPU_ATTN_BTHD=0, as in the JAX
+    package."""
+    if use_ring or fused_qkv or not use_fused:
+        raise NotImplementedError(
+            "ring attention, fused q/k/v projections and the unfused "
+            "attention path are a later slice of the port")
+    B, Tq, _ = q_in.shape
+    Tk = kv_in.shape[1]
+    d_head = d_model // n_head
+    bthd = os.environ.get("PADDLE_TPU_ATTN_BTHD", "1") == "1"
+
+    def split_heads(x, T):
+        x = layers.reshape(x, shape=[B, T, n_head, d_head])
+        if bthd:
+            return x  # (B, T, H, Dh), consumed as it is
+        return layers.transpose(x, perm=[0, 2, 1, 3])  # (B, H, T, Dh)
+
+    q = _linear(q_in, d_model, name and name + ".q")
+    k = _linear(kv_in, d_model, name and name + ".k")
+    v = _linear(kv_in, d_model, name and name + ".v")
+    q = split_heads(q, Tq)
+    k = split_heads(k, Tk)
+    v = split_heads(v, Tk)
+    ctx = layers.fused_attention(
+        q, k, v, causal=causal, sequence_length=kv_lengths,
+        dropout_rate=dropout_rate, layout="bthd" if bthd else "bhtd")
+    if not bthd:
+        ctx = layers.transpose(ctx, perm=[0, 2, 1, 3])
+    ctx = layers.reshape(ctx, shape=[B, Tq, d_model])
+    return _linear(ctx, d_model, name and name + ".out")
+
+
+def decoder_layer(x, enc, n_head, d_model, d_inner, dropout_rate,
+                  src_lengths, tgt_lengths, name, use_ring=False,
+                  sp_axis="sp", moe_experts=0, fused_qkv=False):
+    """Pre-norm decoder block: causal self-attention and a dense FFN, each
+    with a residual. Cross-attention (``enc``) and MoE FFNs are a later
+    slice."""
+    if enc is not None or moe_experts:
+        raise NotImplementedError(
+            "cross-attention and mixture-of-experts FFNs are a later slice "
+            "of the port")
+    h = _pre_norm(x)
+    self_attn = multi_head_attention(
+        h, h, n_head, d_model, dropout_rate,
+        causal=True, kv_lengths=tgt_lengths, name=name + ".self",
+        use_ring=use_ring, sp_axis=sp_axis, fused_qkv=fused_qkv,
+    )
+    x = layers.elementwise_add(x, self_attn)
+    ffn = positionwise_ffn(_pre_norm(x), d_inner, d_model, dropout_rate,
+                           name=name + ".ffn")
+    return layers.elementwise_add(x, ffn)
+
+
+def transformer_lm(
+    ids, labels, vocab_size, n_layer=4, n_head=8, d_model=512, d_inner=2048,
+    dropout_rate=0.0, max_len=2048, fused_head=True,
+    use_ring_attention=False, sp_axis="sp", moe_experts=0,
+    fused_qkv=False, tie_embeddings=False,
+):
+    """Decoder-only causal LM (the flagship). Returns (avg_cost, None): the
+    vocab projection and loss go through ``layers.fused_lm_head_loss``, so
+    the (B*T, vocab) logits are never held. tie_embeddings=True projects
+    through the token-embedding table itself (transpose_w). The unfused
+    head (fused_head=False) is a later slice."""
+    if not fused_head:
+        raise NotImplementedError(
+            "transformer_lm(fused_head=False) needs softmax_with_cross_"
+            "entropy, a later slice of the port")
+    x = _embed(ids, vocab_size, d_model, max_len, "lm")
+    for i in range(n_layer):
+        x = decoder_layer(x, None, n_head, d_model, d_inner, dropout_rate,
+                          None, None, "lm.l%d" % i,
+                          use_ring=use_ring_attention, sp_axis=sp_axis,
+                          moe_experts=moe_experts, fused_qkv=fused_qkv)
+    x = _pre_norm(x)
+    if tie_embeddings:
+        # the head reads the EXISTING "lm.tok_emb" (V, D) table in place
+        default_main_program().global_block().var("lm.tok_emb")
+        head_attr = ParamAttr(name="lm.tok_emb")
+    else:
+        head_attr = ParamAttr(name="lm.head.w",
+                              initializer=NormalInitializer(0.0, 0.02))
+    loss = layers.fused_lm_head_loss(
+        x, labels, vocab_size,
+        param_attr=head_attr,
+        bias_attr=ParamAttr(name="lm.head.b"),
+        transpose_w=tie_embeddings,
+    )
+    return layers.mean(loss), None
 
 
 def _lm_head_logits(x, vocab_size, tie_embeddings, prefix):

@@ -1,6 +1,7 @@
 """Op kernels of paddle_tpu_torch. Importing this package registers every
 kernel with the registry."""
-from . import attention, kv_cache, math, nn, sampling  # noqa: F401
+from . import (attention, fused_loss, kv_cache, math, nn,  # noqa: F401
+               optim, sampling)
 from .registry import KERNELS, get_kernel, register_op
 
 __all__ = ["KERNELS", "get_kernel", "register_op"]

@@ -1,10 +1,11 @@
 """Math / tensor op kernels (counterpart of paddle_tpu/ops/math.py).
 
-The ops of the decoder LM's serving programs: elementwise_add with the
-reference's axis-broadcast rule, relu, mul/matmul, reshape/transpose,
-gather, lookup_table, cast, assign/assign_value and fill_constant. They
-are plain PyTorch on whatever device their inputs lie on; the 2-D
-products go to ``torch.matmul``, as the JAX package left them to XLA.
+The ops of the decoder LM's programs: elementwise_add with the
+reference's axis-broadcast rule, mean, relu, mul/matmul,
+reshape/transpose, gather, lookup_table, cast, assign/assign_value and
+fill_constant. They are plain PyTorch on whatever device their inputs lie
+on; the 2-D products go to ``torch.matmul``, as the JAX package left them
+to XLA.
 """
 from __future__ import annotations
 
@@ -39,6 +40,12 @@ def _elementwise_add(ctx):
     x = ctx.input("X")
     y = _broadcast_y(x, ctx.input("Y"), ctx.attr("axis", -1))
     return {"Out": torch.add(x, y)}
+
+
+@register_op("mean")
+def _mean(ctx):
+    """Mean of every element, a 0-d tensor (reference: mean_op.cc)."""
+    return {"Out": torch.mean(ctx.input("X"))}
 
 
 @register_op("relu")

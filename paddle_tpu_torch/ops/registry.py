@@ -47,13 +47,16 @@ def get_kernel(op_type: str) -> Callable:
 class OpContext:
     """Per-op view handed to a kernel by the interpreter. ``device`` is
     where the program runs: ops that make tensors from attrs
-    (assign_value, fill_constant) put them there."""
+    (assign_value, fill_constant, gaussian_random) put them there.
+    ``rng_fn`` makes the op's random generators (framework/interpreter.py
+    RngStream.for_op)."""
 
-    def __init__(self, op, env, block, device):
+    def __init__(self, op, env, block, device, rng_fn):
         self._op = op
         self._env = env
         self._block = block
         self.device = device
+        self._rng_fn = rng_fn
 
     # -- inputs ---------------------------------------------------------
     def input(self, slot: str, default=None):
@@ -78,6 +81,15 @@ class OpContext:
         from ..framework.dtypes import as_torch_dtype
 
         return as_torch_dtype(self.out_var(slot).dtype)
+
+    # -- services --------------------------------------------------------
+    def rng(self):
+        """A fresh ``torch.Generator`` on the op's device for this draw
+        (counterpart of the reference's ``OpContext.rng``, which hands out
+        a jax PRNG key). Its seed derives from the program seed, the
+        block, the op's position (or ``__rng_idx__`` stamp), the draw
+        count and the program's step; the bits differ from JAX's."""
+        return self._rng_fn()
 
     @property
     def is_test(self) -> bool:

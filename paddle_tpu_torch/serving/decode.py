@@ -36,6 +36,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..executor import analyze_state
+
 __all__ = ["DecodeConfig", "save_decode_model", "DecodePredictor",
            "analyze_state"]
 
@@ -81,26 +83,6 @@ class DecodeConfig:
     @classmethod
     def from_dict(cls, d: Dict) -> "DecodeConfig":
         return cls(**{f: d[f] for f in cls.FIELDS if f in d})
-
-
-def analyze_state(program, feed_names):
-    """Persistable vars read (state inputs) and written (state outputs)
-    by the program's ops (the JAX package's executor.analyze_state)."""
-    read, written = [], []
-    seen_r, seen_w = set(), set()
-    for block in program.blocks:
-        for op in block.ops:
-            for name in op.input_arg_names:
-                var = block._find_var_recursive(name)
-                if var is not None and var.persistable and name not in seen_r and name not in feed_names:
-                    seen_r.add(name)
-                    read.append(name)
-            for name in op.output_arg_names:
-                var = block._find_var_recursive(name)
-                if var is not None and var.persistable and name not in seen_w:
-                    seen_w.add(name)
-                    written.append(name)
-    return read, written
 
 
 def _prefill_graph(config: DecodeConfig, batch: int, seq: int):

@@ -3,7 +3,7 @@ CPU: it imports neither JAX nor the JAX package; its entry points run on
 the card unless asked for the CPU; its kernel wrappers refuse what their
 kernels do not take and never fall back; chip_smoke.py fails without a
 card; the interpreter names a failing op; and chip_smoke's main-path
-run goes end to end at a tiny size on the CPU."""
+runs (training, serving) go end to end at a tiny size on the CPU."""
 import json
 import os
 import shutil
@@ -38,6 +38,8 @@ def test_port_and_chip_smoke_import_no_jax():
         "import paddle_tpu_torch, paddle_tpu_torch.serving.decode\n"
         "import paddle_tpu_torch.framework.interpreter\n"
         "import paddle_tpu_torch.kernels, paddle_tpu_torch.io\n"
+        "import paddle_tpu_torch.executor, paddle_tpu_torch.optimizer\n"
+        "import paddle_tpu_torch.models.transformer\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
@@ -58,6 +60,20 @@ def test_decode_predictor_defaults_to_the_card(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         pt.CUDAPlace(0).torch_device()
     assert pt.CPUPlace().torch_device() == torch.device("cpu")
+
+
+def test_executor_defaults_to_the_card(monkeypatch):
+    """Executor() means CUDAPlace(0) — the JAX package's Executor defaults
+    to the CPU, the port's does not — and raises without a CUDA device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pt.Executor()
+    exe = pt.Executor(pt.CPUPlace())
+    assert exe.device == torch.device("cpu")
+    with pytest.raises(NotImplementedError, match="transpiler"):
+        pt.Executor(pt.CPUPlace(), opt_level=1)
+    with pytest.raises(NotImplementedError, match="run_loop"):
+        exe.run_loop(pt.Program())
 
 
 def _meta(*shape, dtype=torch.float32):
@@ -124,6 +140,36 @@ def test_decode_wrapper_refuses_what_k3_does_not_take(case, exc, match):
         pt_kv.decode_attention(q, kc, vc, lens)
 
 
+@pytest.mark.parametrize("fused", [False, True], ids=["K2", "K4"])
+@pytest.mark.parametrize("case, exc, match", [
+    ("dtype", TypeError, "float32"),
+    ("head_dim", ValueError, "head dim"),
+    ("strides", ValueError, "contiguous head dim"),
+    ("alignment", ValueError, "16-byte aligned"),
+    ("device", ValueError, "is on meta"),
+])
+def test_backward_wrappers_refuse_what_k2_and_k4_do_not_take(
+        monkeypatch, case, exc, match, fused):
+    """The backward (K2, or K4 under PADDLE_TPU_FLASH_FUSED_BWD=1) takes
+    K1's inputs: fp32, head dim 64 or 128, a contiguous head dim, 16-byte
+    aligned rows, one CUDA device; off the CPU it raises on anything
+    else."""
+    monkeypatch.setenv("PADDLE_TPU_FLASH_FUSED_BWD", "1" if fused else "0")
+    shape = (2, 16, 4, 64)
+    q = k = v = out = do = _meta(*shape)
+    lse = _meta(8, 1, 16)
+    if case == "dtype":
+        q = _meta(*shape, dtype=torch.bfloat16)
+    elif case == "head_dim":
+        q = k = v = out = do = _meta(2, 16, 4, 96)
+    elif case == "strides":
+        k = _meta(2, 16, 64, 4).transpose(2, 3)
+    elif case == "alignment":
+        q = _meta_offset(*shape)
+    with pytest.raises(exc, match=match):
+        pt_attn.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+
+
 def test_kernel_wrappers_have_no_fallback():
     """No try/except anywhere a wrapper could swallow a kernel failure
     and run the plain version instead."""
@@ -158,21 +204,40 @@ def test_interpreter_names_the_failing_op():
         run_block(prog.global_block(), env, torch.device("cpu"))
     assert "'shape': [4, 4]" in str(ei.value)
     assert y.name not in env
-    prog.global_block().append_op("autodiff", attrs={"loss_name": "x"})
+    # training runs now; mixed precision is still a later slice
     prog.global_block().ops.pop(0)
-    with pytest.raises(NotImplementedError, match="training"):
+    prog.enable_mixed_precision()
+    with pytest.raises(NotImplementedError, match="bf16"):
         run_block(prog.global_block(), env, torch.device("cpu"))
 
 
 def test_chip_smoke_slice_rehearses_on_cpu(tmp_path):
-    """chip_smoke's main-path run (export, load, generate, the
-    teacher-forced logits check) at a tiny size on the CPU, where the
-    kernels' plain versions run and no launch is counted."""
+    """chip_smoke's main-path runs at a tiny size on the CPU, where the
+    kernels' plain versions run and no launch is counted: the training
+    phase (startup, steps, the kernel, plain, plain-backward,
+    fused-backward and BHTD steps from one saved state) and the serving slice (export, load,
+    generate, the teacher-forced logits check)."""
     sys.path.insert(0, ROOT)
     try:
         import chip_smoke
     finally:
         sys.path.remove(ROOT)
+    tcfg = dict(vocab_size=61, n_layer=2, n_head=2, d_model=32,
+                d_inner=64, max_len=16)
+    tr = chip_smoke.run_train(tcfg, 2, 16, 1e-2, 1, 2, 0, pt.CPUPlace(),
+                              str(tmp_path))
+    json.dumps(tr)
+    none = {"K1": 0, "K2-dq": 0, "K2-dkv": 0, "K4": 0}
+    assert tr["launches_per_step"] == none
+    assert tr["fused_bwd_launches"] == none == tr["bhtd_launches"]
+    assert len(tr["losses"]) == 3 and np.all(np.isfinite(tr["losses"]))
+    assert tr["losses"][-1] < tr["losses"][0]
+    for key in ("kernels_vs_plain", "bwd_kernels_vs_plain_bwd",
+                "fused_bwd_vs_kernels", "bhtd_vs_bthd"):
+        assert tr[key]["ok"], tr[key]
+    # on the CPU the kernel path is the plain path
+    assert tr["kernels_vs_plain"]["loss_rel_err"] == 0.0
+    assert tr["kernels_vs_plain"]["param_max_abs_err"] == 0.0
     cfg = dict(vocab_size=61, n_layer=2, n_head=2, d_model=32, d_inner=64,
                max_len=128)
     res = chip_smoke.run_slice(cfg, np.array([20, 9, 13]), 6, 0,
