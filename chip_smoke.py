@@ -15,13 +15,20 @@ Each phase prints one JSON line:
    attention) held against their plain PyTorch versions on the card at
    the training shape (B 16, T 1024, 16 heads of 64, causal, both
    layouts), the serving shapes and edge cases (ragged T, head dim 128,
-   KV lengths 0, 77, 200; slot lengths 0, 1 and S), each with its max
-   abs error against a stated tolerance and, at the main shapes, its
-   device time (REPS calls captured in one CUDA graph, the replay timed by
-   CUDA events), beside the plain version's time, the bound, and the time
-   of torch's scaled_dot_product_attention on the same inputs (forward;
-   for the backward, forward + backward minus forward), a yardstick only:
-   the port never calls it.
+   KV lengths 0, 77, 200; for the backward also T 129 and T 1 and
+   lengths 0, 1, 129; slot lengths 0, 1 and S), each with its max abs
+   error against a stated tolerance and, at the main shapes, its device
+   time (REPS calls captured in one CUDA graph, the replay timed by CUDA
+   events), beside the plain version's time, the bound, and the time of
+   torch's scaled_dot_product_attention on the same inputs (forward; for
+   the backward, forward + backward minus forward), a yardstick only: the
+   port never calls it. The bound of an attention kernel counts its
+   fp32-accurate products at the tensor cores' 3xTF32 rate, the least
+   time the card could take for them (K2 runs them that way); the
+   CUDA-core fp32 bound rides beside it as fp32_bound_ms. K2's entries
+   also carry, from cuobjdump of the built library, each kernel's
+   HMMA/HGMMA count (the run fails if one is 0), registers and local
+   memory.
 3. train: the flagship training config (bench.py's LM phase: vocab
    32768, 12 layers, d_model 1024, 16 heads, d_inner 4096, seq 1024,
    batch 16, Adam 1e-4), fp32, random weights from the port's own startup
@@ -72,15 +79,21 @@ import numpy as np
 
 _ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM published peaks (NVIDIA data sheet): fp32 on CUDA cores, and
-# HBM3 bandwidth. The bound of a call is the larger of its operations over
-# the first and its bytes over the second.
+# H100 SXM published peaks (NVIDIA data sheet): fp32 on CUDA cores, dense
+# TF32 on the tensor cores, and HBM3 bandwidth. An fp32-accurate product
+# on the tensor cores is three TF32 products (3xTF32, as K2 and the
+# library's fp32 attention compute it), so fp32 products reach a third of
+# the TF32 rate there, 2.5x the CUDA cores'. The bound of a call is the
+# larger of its operations over that rate and its bytes over HBM's.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
 PEAK_BYTES_PER_S = 3.35e12
 
 # kernel vs plain version at unit-scale inputs: fp32 sums taken in another
-# order (tiles, online softmax, split-KV combine) differ by ~1e-6; 1e-4
-# leaves room for the largest outputs
+# order (tiles, online softmax, split-KV combine) differ by ~1e-6, K2's
+# 3xTF32 tensor-core products by up to ~2e-5 of the largest gradient (an
+# H100); 1e-4 leaves room for the largest outputs
 KERNEL_TOL = 1e-4
 # teacher-forced logits, kernel path vs plain path, after 12 layers of
 # fp32 arithmetic: logits are O(1); reordered sums drift ~1e-5
@@ -164,11 +177,65 @@ def time_ms(fn, warmup=3):
     return start.elapsed_time(end) / REPS
 
 
-def bound(flops, nbytes):
-    """(bound_ms, bound_by): the least time the card could take."""
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+def bound(flops, nbytes, peak_flops=PEAK_3XTF32_FLOPS):
+    """(bound_ms, bound_by): the least time the card could take, with the
+    products at ``peak_flops`` (by default fp32-accurate on the tensor
+    cores; PEAK_FP32_FLOPS gives the CUDA-core bound)."""
+    t_ops = flops / peak_flops * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def sass_report(lib_path, kernels):
+    """Per instantiation of each kernel in ``kernels`` (function names) in
+    the built library: its tensor-core instructions (HMMA, HGMMA) from
+    ``cuobjdump -sass``, and its registers, stack and local memory from
+    ``cuobjdump -res-usage``."""
+    from paddle_tpu_torch.kernels import cuda_tool
+
+    def dump(flag):
+        r = subprocess.run([cuda_tool("cuobjdump"), flag, lib_path],
+                           capture_output=True, text=True, timeout=300)
+        if r.returncode != 0:
+            fail("cuobjdump %s failed: %s" % (flag, r.stderr.strip()))
+        return r.stdout
+
+    return parse_sass(dump("-sass"), dump("-res-usage"), kernels)
+
+
+def parse_sass(sass, res_usage, kernels):
+    """See sass_report: {"<kernel><D>": {"tc_instructions", "regs",
+    "stack", "local"}} for the template instantiations (on the head dim)
+    of the named kernels."""
+    import re
+
+    def key(mangled):
+        for name in kernels:
+            m = re.search(r"%s_kernelILi(\d+)E" % name, mangled)
+            if m:
+                return "%s<%s>" % (name, m.group(1))
+        return None
+
+    out, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = key(m.group(1))
+            if cur:
+                out[cur] = {"tc_instructions": 0}
+        elif cur and re.search(r"\b(HMMA|HGMMA)\.", line):
+            out[cur]["tc_instructions"] += 1
+    cur = None
+    for line in res_usage.splitlines():
+        m = re.search(r"Function (\S+):", line)
+        if m:
+            cur = key(m.group(1))
+            continue
+        m = re.search(r"REG:(\d+) STACK:(\d+) .*LOCAL:(\d+)", line)
+        if cur and m and cur in out:
+            out[cur].update(regs=int(m.group(1)), stack=int(m.group(2)),
+                            local=int(m.group(3)))
+    return out
 
 
 def flash_work(b, h, t, tk, d, causal, lengths=None):
@@ -252,6 +319,7 @@ def check_flash(torch, gen, dev, b, t, h, d, causal, layout, lengths=None,
             qt, kt, vt, is_causal=causal))
         flops, nbytes = flash_work(b, h, t, t, d, causal, lengths)
         res["bound_ms"], res["bound_by"] = bound(flops, nbytes)
+        res["fp32_bound_ms"] = bound(flops, nbytes, PEAK_FP32_FLOPS)[0]
         res["gflop"], res["mbytes"] = flops / 1e9, nbytes / 1e6
     emit(res)
     return res
@@ -278,8 +346,9 @@ def check_flash_bwd(torch, gen, dev, b, t, h, d, causal, layout,
                     lengths=None, time_it=False):
     """K2 (dq, then dk/dv) and K4 against flash_attention_bwd_plain on the
     same inputs: q, k, v, dO ~ N(0, 1), out and lse from K1. Each gradient
-    is held to KERNEL_TOL of its own largest element (at least 1); K4's
-    dq sums with atomics, in an order that changes from run to run."""
+    is held to KERNEL_TOL of its own largest element (at least 1; the
+    *_rel_err keys are the error over that); K4's dq sums with atomics, in
+    an order that changes from run to run."""
     from paddle_tpu_torch.ops import attention as A
 
     shape = (b, t, h, d) if layout == "bthd" else (b, h, t, d)
@@ -304,6 +373,7 @@ def check_flash_bwd(torch, gen, dev, b, t, h, d, causal, layout,
             err = float((g - r).abs().max())
             scale = max(1.0, float(r.abs().max()))
             res["%s_%s_err" % (key, name)] = err
+            res["%s_%s_rel_err" % (key, name)] = err / scale
             worst[key] = max(worst[key], err)
             if not bool(torch.isfinite(g).all()) or err > KERNEL_TOL * scale:
                 fail("%s %s disagrees with the plain backward at %s causal=%s "
@@ -347,6 +417,8 @@ def check_flash_bwd(torch, gen, dev, b, t, h, d, causal, layout,
                                            products)
             res["%s_bound_ms" % key], res["%s_bound_by" % key] = \
                 bound(flops, nbytes)
+            res["%s_fp32_bound_ms" % key] = bound(flops, nbytes,
+                                                  PEAK_FP32_FLOPS)[0]
         res["gflop"] = flash_bwd_work(b, h, t, t, d, causal, lengths)[0] / 1e9
     emit(res)
     return res
@@ -930,6 +1002,26 @@ def main(argv=None):
                     lengths=[0, 77, 200])
     check_flash_bwd(torch, gen, dev, 3, 200, 2, 128, False, "bthd",
                     lengths=[0, 77, 200])
+    # one row past a 128-row tile, and a single row
+    for t, d, causal, layout in itertools.product(
+            (129, 1), (64, 128), (True, False), ("bthd", "bhtd")):
+        check_flash_bwd(torch, gen, dev, 2, t, 2, d, causal, layout)
+    check_flash_bwd(torch, gen, dev, 3, 129, 2, 64, True, "bthd",
+                    lengths=[0, 1, 129])
+    check_flash_bwd(torch, gen, dev, 3, 129, 2, 128, False, "bhtd",
+                    lengths=[0, 1, 129])
+    # K2 on the tensor cores: a fact about the binary
+    from paddle_tpu_torch.kernels import library_path
+
+    k2_sass = sass_report(library_path("flash_bwd"),
+                          ("flash_bwd_dq", "flash_bwd_dkv"))
+    emit({"case": "K2 SASS", "kernels": k2_sass})
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        for d in (64, 128):
+            got = k2_sass.get("%s<%d>" % (name, d), {})
+            if not got.get("tc_instructions"):
+                fail("%s<%d> has no tensor-core instruction in its SASS: %s"
+                     % (name, d, got))
     S = 2048
     k3 = check_decode(torch, gen, dev, 8, S, 8, 128,
                       [int(n) + MAX_NEW - 1 for n in prompt_lens],
@@ -975,13 +1067,16 @@ def main(argv=None):
     # fused-backward step and the BHTD step; one generate call), its error
     # and times at the training shape (K3: the serving shape)
     def entry(name, src, replaces, by_path, err, ms, plain_ms, bnd,
-              library_ms):
+              library_ms, **extra):
         by_path = {k: v for k, v in by_path.items() if v}
         return {"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
-                "library_ms": library_ms}
+                "library_ms": library_ms, **extra}
+
+    def k2_sass_of(name):
+        return {"Dh%d" % d: k2_sass["%s<%d>" % (name, d)] for d in (64, 128)}
 
     csrc = "paddle_tpu_torch/csrc/"
     per_step, fused_step = tr["launches_per_step"], tr["fused_bwd_launches"]
@@ -992,19 +1087,24 @@ def main(argv=None):
                "train_step_bhtd": tr["bhtd_launches"]["K1"],
                "generate": sl["launches"]["K1"]},
               k1["max_abs_err"], k1["ms"], k1["plain_ms"],
-              (k1["bound_ms"], k1["bound_by"]), k1["library_ms"]),
+              (k1["bound_ms"], k1["bound_by"]), k1["library_ms"],
+              fp32_bound_ms=k1["fp32_bound_ms"]),
         entry("flash_bwd_dq", csrc + "flash_bwd.cu",
               "paddle_tpu/ops/attention.py:216",
               {"train_step": per_step["K2-dq"],
                "train_step_bhtd": tr["bhtd_launches"]["K2-dq"]},
               bwd["K2_max_abs_err"], bwd["dq_ms"], bwd["plain_ms"],
-              (bwd["dq_bound_ms"], bwd["dq_bound_by"]), None),
+              (bwd["dq_bound_ms"], bwd["dq_bound_by"]), None,
+              fp32_bound_ms=bwd["dq_fp32_bound_ms"],
+              sass=k2_sass_of("flash_bwd_dq")),
         entry("flash_bwd_dkv", csrc + "flash_bwd.cu",
               "paddle_tpu/ops/attention.py:246",
               {"train_step": per_step["K2-dkv"],
                "train_step_bhtd": tr["bhtd_launches"]["K2-dkv"]},
               bwd["K2_max_abs_err"], bwd["dkv_ms"], bwd["plain_ms"],
-              (bwd["dkv_bound_ms"], bwd["dkv_bound_by"]), None),
+              (bwd["dkv_bound_ms"], bwd["dkv_bound_by"]), None,
+              fp32_bound_ms=bwd["dkv_fp32_bound_ms"],
+              sass=k2_sass_of("flash_bwd_dkv")),
         entry("decode_attn", csrc + "decode_attn.cu",
               "paddle_tpu/ops/kv_cache.py:88",
               {"generate": sl["launches"]["K3"]},
@@ -1015,18 +1115,20 @@ def main(argv=None):
               {"train_step_fused_bwd": fused_step["K4"]},
               bwd["K4_max_abs_err"], bwd["fused_ms"], bwd["plain_ms"],
               (bwd["pair_bound_ms"], bwd["pair_bound_by"]),
-              bwd["library_ms"]),
+              bwd["library_ms"], fp32_bound_ms=bwd["pair_fp32_bound_ms"]),
     ]
     for k in kernels:
         if not k["launches"]:
             fail("kernel %s was launched no time on the main path"
                  % k["name"])
     emit({"k1_bhtd": {key: k1_bhtd[key] for key in (
-        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+        "fp32_bound_ms")},
         "k2_pair": {"ms": bwd["pair_ms"], "plain_ms": bwd["plain_ms"],
                     "library_ms": bwd["library_ms"],
                     "bound_ms": bwd["pair_bound_ms"],
-                    "bound_by": bwd["pair_bound_by"]}})
+                    "bound_by": bwd["pair_bound_by"],
+                    "fp32_bound_ms": bwd["pair_fp32_bound_ms"]}})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

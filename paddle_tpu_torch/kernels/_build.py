@@ -22,7 +22,8 @@ import threading
 import time
 from typing import Dict, Iterable
 
-__all__ = ["SOURCES", "BUILD_DIR", "build_all", "load"]
+__all__ = ["SOURCES", "BUILD_DIR", "build_all", "load", "library_path",
+           "cuda_tool"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -42,6 +43,11 @@ def _nvcc() -> str:
             "nvcc not found (looked on PATH and in /usr/local/cuda/bin): "
             "the CUDA kernels build on a machine with the CUDA toolkit")
     return path
+
+
+def cuda_tool(name: str) -> str:
+    """The path of a CUDA toolkit program beside nvcc (``cuobjdump``)."""
+    return os.path.join(os.path.dirname(_nvcc()), name)
 
 
 def _target(name: str) -> str:
@@ -92,3 +98,10 @@ def load(name: str) -> ctypes.CDLL:
             build_all([name])
             lib = _LIBS[name] = ctypes.CDLL(_target(name))
         return lib
+
+
+def library_path(name: str) -> str:
+    """The path of the built library of kernel source ``name``, built on
+    first use."""
+    load(name)
+    return _target(name)

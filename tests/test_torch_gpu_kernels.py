@@ -6,9 +6,12 @@ nor the JAX package, so it runs where only torch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu_kernels.py
 
-Tolerance: 1e-4 abs at unit-scale inputs (fp32 sums in another order);
-for the gradients, 1e-4 of each one's largest element (at least 1): they
-grow with T, and K4 adds dq with atomics in an order that changes."""
+Tolerance: 1e-4 abs at unit-scale inputs (fp32 sums in another order;
+K2's products in 3xTF32 on the tensor cores); for the gradients, 1e-4 of
+each one's largest element (at least 1): they grow with T, and K4 adds dq
+with atomics in an order that changes."""
+import itertools
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -84,6 +87,13 @@ def test_decode_kernel_matches_plain(card, b, s, h, d, lengths):
     (3, 200, 4, 64, True, "bhtd", [0, 77, 200]),
     (3, 200, 2, 128, False, "bthd", [0, 77, 200]),
     (2, 1024, 4, 64, True, "bhtd", None),
+] + [
+    # one row past a 128-row tile, and a single row (chip_smoke.py's cases)
+    (2, t, 2, d, causal, layout, None) for t, d, causal, layout in
+    itertools.product((129, 1), (64, 128), (True, False), ("bthd", "bhtd"))
+] + [
+    (3, 129, 2, 64, True, "bthd", [0, 1, 129]),
+    (3, 129, 2, 128, False, "bhtd", [0, 1, 129]),
 ])
 def test_flash_backward_kernels_match_plain(card, b, t, h, d, causal, layout,
                                             lengths):

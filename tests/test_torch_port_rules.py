@@ -248,3 +248,57 @@ def test_chip_smoke_slice_rehearses_on_cpu(tmp_path):
     assert res["replay_matches_generate"] and res["logits_finite"]
     assert res["logits_max_abs_err"] == 0.0
     assert not os.path.exists(os.path.join(str(tmp_path), "model"))
+
+
+def test_chip_smoke_counts_tensor_core_instructions_per_kernel():
+    """chip_smoke's SASS check: cuobjdump's -sass and -res-usage output
+    (abridged, in the toolkit's format) turn into each K2 kernel's
+    tensor-core instruction count, registers, stack and local memory, per
+    head-dim instantiation; other kernels are left out."""
+    sys.path.insert(0, ROOT)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(ROOT)
+    dq64 = ("_ZN45_GLOBAL__N__8bcb2f8f_12_flash_bwd_cu_26e75b9b19flash_bwd_"
+            "dq_kernelILi64EEEvPKfS2_S2_S2_S2_S2_PfPKiiiiNS_7StridesEfi")
+    dkv128 = ("_ZN45_GLOBAL__N__8bcb2f8f_12_flash_bwd_cu_26e75b9b20flash_bwd"
+              "_dkv_kernelILi128EEEvPKfS2_S2_S2_S2_S2_PfS3_PKiiiiNS_7Strides"
+              "Efi")
+    other = "_Z12other_kernelPf"
+    sass = "\n".join([
+        "\tcode for sm_90a",
+        "\t\tFunction : %s" % dq64,
+        "        /*0010*/  LDSM.16.M88.4 R4, [R2] ;",
+        "        /*0020*/  HMMA.1688.F32.TF32 R8, R4, R12, R8 ;",
+        "        /*0030*/  HMMA.1688.F32.TF32 R8, R16, R12, R8 ;",
+        "\t\tFunction : %s" % dkv128,
+        "        /*0010*/  HGMMA.64x64x8.F32.TF32 R24, gdesc[UR4], R24 ;",
+        "        /*0020*/  FADD R1, R2, R3 ;",
+        "\t\tFunction : %s" % other,
+        "        /*0010*/  HMMA.1688.F32.TF32 R8, R4, R12, R8 ;",
+    ])
+    res_usage = "\n".join([
+        " Function %s:" % dq64,
+        "  REG:162 STACK:0 SHARED:0 LOCAL:0 CONSTANT[0]:784 TEXTURE:0",
+        " Function %s:" % dkv128,
+        "  REG:238 STACK:8 SHARED:0 LOCAL:32 CONSTANT[0]:792 TEXTURE:0",
+        " Function %s:" % other,
+        "  REG:16 STACK:0 SHARED:0 LOCAL:0 CONSTANT[0]:356 TEXTURE:0",
+    ])
+    got = chip_smoke.parse_sass(sass, res_usage,
+                                ("flash_bwd_dq", "flash_bwd_dkv"))
+    assert got == {
+        "flash_bwd_dq<64>": {"tc_instructions": 2, "regs": 162, "stack": 0,
+                             "local": 0},
+        "flash_bwd_dkv<128>": {"tc_instructions": 1, "regs": 238,
+                               "stack": 8, "local": 32},
+    }
+    # the bound: fp32-accurate products at the 3xTF32 tensor-core rate
+    # (495 / 3 TFLOP/s) by default, at the CUDA cores' 67 on request
+    ms, by = chip_smoke.bound(495e9, 1e6)
+    assert by == "operations" and abs(ms - 3.0) < 1e-9
+    ms, by = chip_smoke.bound(67e9, 1e6, chip_smoke.PEAK_FP32_FLOPS)
+    assert by == "operations" and abs(ms - 1.0) < 1e-9
+    ms, by = chip_smoke.bound(1e9, 3.35e9)
+    assert by == "bytes" and abs(ms - 1.0) < 1e-9
