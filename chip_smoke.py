@@ -15,20 +15,22 @@ Each phase prints one JSON line:
    attention) held against their plain PyTorch versions on the card at
    the training shape (B 16, T 1024, 16 heads of 64, causal, both
    layouts), the serving shapes and edge cases (ragged T, head dim 128,
-   KV lengths 0, 77, 200; for the backward also T 129 and T 1 and
-   lengths 0, 1, 129; slot lengths 0, 1 and S), each with its max abs
-   error against a stated tolerance and, at the main shapes, its device
-   time (REPS calls captured in one CUDA graph, the replay timed by CUDA
-   events), beside the plain version's time, the bound, and the time of
-   torch's scaled_dot_product_attention on the same inputs (forward; for
-   the backward, forward + backward minus forward), a yardstick only: the
-   port never calls it. The bound of an attention kernel counts its
-   fp32-accurate products at the tensor cores' 3xTF32 rate, the least
-   time the card could take for them (K2 runs them that way); the
-   CUDA-core fp32 bound rides beside it as fp32_bound_ms. K2's entries
-   also carry, from cuobjdump of the built library, each kernel's
-   HMMA/HGMMA count (the run fails if one is 0), registers and local
-   memory.
+   KV lengths 0, 77, 200; T 129 and T 1 at both head dims, causal or
+   not, in both layouts, and lengths 0, 1, 129; slot lengths 0, 1 and
+   S), each with its max abs error against a stated tolerance (the
+   "K1 worst" line: K1's over all its cases) and, at the main shapes,
+   its device time (REPS calls captured in one CUDA graph, the replay
+   timed by CUDA events), beside the plain version's time, the bound,
+   and the time of torch's scaled_dot_product_attention on the same
+   inputs (forward; for the backward, forward + backward minus forward),
+   a yardstick only: the port never calls it. The bound of an attention
+   kernel counts its fp32-accurate products at the tensor cores' 3xTF32
+   rate, the least time the card could take for them (K1, K2 and K4 run
+   them that way); the CUDA-core fp32 bound rides beside it as
+   fp32_bound_ms. K1's, K2's and K4's entries also carry, from cuobjdump
+   of the built libraries, each kernel's TF32 HMMA/HGMMA count (the run
+   fails if one is 0), registers and local memory (the "SASS" line), and
+   K1's its numbers at the serving prefill shape too (serving_*).
 3. train: the flagship training config (bench.py's LM phase: vocab
    32768, 12 layers, d_model 1024, 16 heads, d_inner 4096, seq 1024,
    batch 16, Adam 1e-4), fp32, random weights from the port's own startup
@@ -81,8 +83,8 @@ _ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM published peaks (NVIDIA data sheet): fp32 on CUDA cores, dense
 # TF32 on the tensor cores, and HBM3 bandwidth. An fp32-accurate product
-# on the tensor cores is three TF32 products (3xTF32, as K2 and the
-# library's fp32 attention compute it), so fp32 products reach a third of
+# on the tensor cores is three TF32 products (3xTF32, as K1, K2, K4 and
+# the library's fp32 attention compute it), so fp32 products reach a third of
 # the TF32 rate there, 2.5x the CUDA cores'. The bound of a call is the
 # larger of its operations over that rate and its bytes over HBM's.
 PEAK_FP32_FLOPS = 67e12
@@ -91,9 +93,9 @@ PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
 PEAK_BYTES_PER_S = 3.35e12
 
 # kernel vs plain version at unit-scale inputs: fp32 sums taken in another
-# order (tiles, online softmax, split-KV combine) differ by ~1e-6, K2's
-# 3xTF32 tensor-core products by up to ~2e-5 of the largest gradient (an
-# H100); 1e-4 leaves room for the largest outputs
+# order (tiles, online softmax, split-KV combine) differ by ~1e-6, the
+# 3xTF32 tensor-core products of K1, K2 and K4 by up to ~2e-5 of the
+# largest gradient (an H100); 1e-4 leaves room for the largest outputs
 KERNEL_TOL = 1e-4
 # teacher-forced logits, kernel path vs plain path, after 12 layers of
 # fp32 arithmetic: logits are O(1); reordered sums drift ~1e-5
@@ -188,9 +190,9 @@ def bound(flops, nbytes, peak_flops=PEAK_3XTF32_FLOPS):
 
 def sass_report(lib_path, kernels):
     """Per instantiation of each kernel in ``kernels`` (function names) in
-    the built library: its tensor-core instructions (HMMA, HGMMA) from
-    ``cuobjdump -sass``, and its registers, stack and local memory from
-    ``cuobjdump -res-usage``."""
+    the built library: its TF32 tensor-core instructions (HMMA or HGMMA
+    with a .TF32 type) from ``cuobjdump -sass``, and its registers, stack
+    and local memory from ``cuobjdump -res-usage``."""
     from paddle_tpu_torch.kernels import cuda_tool
 
     def dump(flag):
@@ -223,7 +225,7 @@ def parse_sass(sass, res_usage, kernels):
             cur = key(m.group(1))
             if cur:
                 out[cur] = {"tc_instructions": 0}
-        elif cur and re.search(r"\b(HMMA|HGMMA)\.", line):
+        elif cur and re.search(r"\b(HMMA|HGMMA)\.\S*TF32", line):
             out[cur]["tc_instructions"] += 1
     cur = None
     for line in res_usage.splitlines():
@@ -796,13 +798,14 @@ def compare_steps(got, ref, lr, grad_rtol=GRAD_RTOL):
     big = max(float(g.abs().max()) for g in gr.values())
     res = {"loss": float(lg), "ref_loss": float(lr_),
            "loss_rel_err": abs(float(lg) - float(lr_)) / abs(float(lr_))}
-    worst, bad, errs = (0.0, None), [], []
+    worst, bad, errs, zero = (0.0, None), [], [], 0.0
     for name in gr:
         a, b = gg[name], gr[name]
         finite = bool(torch.isfinite(a).all())
         if name.endswith(".k.b@GRAD"):
             err = max(float(a.abs().max()), float(b.abs().max())) / big
             tol = ZERO_GRAD_TOL
+            zero = max(zero, err / tol)
         else:
             err = float((a - b).abs().max()) / max(float(b.abs().max()),
                                                    1e-30)
@@ -815,6 +818,8 @@ def compare_steps(got, ref, lr, grad_rtol=GRAD_RTOL):
     res["grad_rtol"] = grad_rtol
     res["grad_rel_err_median"] = float(np.median(errs))
     res["grad_worst_share_of_tol"], res["grad_worst"] = worst
+    res["grad_rel_err_max"] = float(max(errs))
+    res["zero_grad_worst_share_of_tol"] = zero
     res["param_max_abs_err"] = max(float((pg[n] - pr[n]).abs().max())
                                    for n in pr)
     res["param_tol"] = lr / 10
@@ -987,10 +992,24 @@ def main(argv=None):
                      time_it=True)
     k1_bhtd = check_flash(torch, gen, dev, tb, tt, th, td, True, "bhtd",
                           time_it=True)
-    check_flash(torch, gen, dev, 8, 1024, 8, 128, True, "bthd", time_it=True)
-    check_flash(torch, gen, dev, 8, 200, 8, 128, False, "bthd")
-    check_flash(torch, gen, dev, 3, 200, 4, 64, True, "bhtd",
-                lengths=[0, 77, 200])
+    k1_serve = check_flash(torch, gen, dev, 8, 1024, 8, 128, True, "bthd",
+                           time_it=True)
+    k1_cases = [k1, k1_bhtd, k1_serve]
+    k1_cases.append(check_flash(torch, gen, dev, 8, 200, 8, 128, False,
+                                "bthd"))
+    k1_cases.append(check_flash(torch, gen, dev, 3, 200, 4, 64, True, "bhtd",
+                                lengths=[0, 77, 200]))
+    # one row past a 128-row tile, and a single row; lengths 0, 1 and T
+    for t, d, causal, layout in itertools.product(
+            (129, 1), (64, 128), (True, False), ("bthd", "bhtd")):
+        k1_cases.append(check_flash(torch, gen, dev, 2, t, 2, d, causal,
+                                    layout))
+    for causal, layout in ((True, "bthd"), (False, "bhtd")):
+        k1_cases.append(check_flash(torch, gen, dev, 3, 129, 2, 128, causal,
+                                    layout, lengths=[0, 1, 129]))
+    emit({"case": "K1 worst", "cases": len(k1_cases), "tol": KERNEL_TOL,
+          "max_abs_err": max(r["max_abs_err"] for r in k1_cases),
+          "lse_max_abs_err": max(r["lse_max_abs_err"] for r in k1_cases)})
     # K2 and K4 at the training shape in both layouts, and edge cases
     bwd = check_flash_bwd(torch, gen, dev, tb, tt, th, td, True, "bthd",
                           time_it=True)
@@ -1010,18 +1029,22 @@ def main(argv=None):
                     lengths=[0, 1, 129])
     check_flash_bwd(torch, gen, dev, 3, 129, 2, 128, False, "bhtd",
                     lengths=[0, 1, 129])
-    # K2 on the tensor cores: a fact about the binary
+    # K1, K2 and K4 on the tensor cores: a fact about the binaries
     from paddle_tpu_torch.kernels import library_path
 
-    k2_sass = sass_report(library_path("flash_bwd"),
-                          ("flash_bwd_dq", "flash_bwd_dkv"))
-    emit({"case": "K2 SASS", "kernels": k2_sass})
-    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+    sass = {}
+    for lib, names in (("flash_fwd", ("flash_fwd",)),
+                       ("flash_bwd", ("flash_bwd_dq", "flash_bwd_dkv")),
+                       ("flash_bwd_fused", ("flash_bwd_fused",))):
+        sass.update(sass_report(library_path(lib), names))
+    emit({"case": "SASS", "kernels": sass})
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                 "flash_bwd_fused"):
         for d in (64, 128):
-            got = k2_sass.get("%s<%d>" % (name, d), {})
+            got = sass.get("%s<%d>" % (name, d), {})
             if not got.get("tc_instructions"):
-                fail("%s<%d> has no tensor-core instruction in its SASS: %s"
-                     % (name, d, got))
+                fail("%s<%d> has no TF32 tensor-core instruction in its "
+                     "SASS: %s" % (name, d, got))
     S = 2048
     k3 = check_decode(torch, gen, dev, 8, S, 8, 128,
                       [int(n) + MAX_NEW - 1 for n in prompt_lens],
@@ -1075,8 +1098,8 @@ def main(argv=None):
                 "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
                 "library_ms": library_ms, **extra}
 
-    def k2_sass_of(name):
-        return {"Dh%d" % d: k2_sass["%s<%d>" % (name, d)] for d in (64, 128)}
+    def sass_of(name):
+        return {"Dh%d" % d: sass["%s<%d>" % (name, d)] for d in (64, 128)}
 
     csrc = "paddle_tpu_torch/csrc/"
     per_step, fused_step = tr["launches_per_step"], tr["fused_bwd_launches"]
@@ -1088,7 +1111,10 @@ def main(argv=None):
                "generate": sl["launches"]["K1"]},
               k1["max_abs_err"], k1["ms"], k1["plain_ms"],
               (k1["bound_ms"], k1["bound_by"]), k1["library_ms"],
-              fp32_bound_ms=k1["fp32_bound_ms"]),
+              fp32_bound_ms=k1["fp32_bound_ms"], sass=sass_of("flash_fwd"),
+              **{"serving_" + key: k1_serve[key] for key in (
+                  "shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                  "bound_by", "fp32_bound_ms")}),
         entry("flash_bwd_dq", csrc + "flash_bwd.cu",
               "paddle_tpu/ops/attention.py:216",
               {"train_step": per_step["K2-dq"],
@@ -1096,7 +1122,7 @@ def main(argv=None):
               bwd["K2_max_abs_err"], bwd["dq_ms"], bwd["plain_ms"],
               (bwd["dq_bound_ms"], bwd["dq_bound_by"]), None,
               fp32_bound_ms=bwd["dq_fp32_bound_ms"],
-              sass=k2_sass_of("flash_bwd_dq")),
+              sass=sass_of("flash_bwd_dq")),
         entry("flash_bwd_dkv", csrc + "flash_bwd.cu",
               "paddle_tpu/ops/attention.py:246",
               {"train_step": per_step["K2-dkv"],
@@ -1104,7 +1130,7 @@ def main(argv=None):
               bwd["K2_max_abs_err"], bwd["dkv_ms"], bwd["plain_ms"],
               (bwd["dkv_bound_ms"], bwd["dkv_bound_by"]), None,
               fp32_bound_ms=bwd["dkv_fp32_bound_ms"],
-              sass=k2_sass_of("flash_bwd_dkv")),
+              sass=sass_of("flash_bwd_dkv")),
         entry("decode_attn", csrc + "decode_attn.cu",
               "paddle_tpu/ops/kv_cache.py:88",
               {"generate": sl["launches"]["K3"]},
@@ -1115,7 +1141,8 @@ def main(argv=None):
               {"train_step_fused_bwd": fused_step["K4"]},
               bwd["K4_max_abs_err"], bwd["fused_ms"], bwd["plain_ms"],
               (bwd["pair_bound_ms"], bwd["pair_bound_by"]),
-              bwd["library_ms"], fp32_bound_ms=bwd["pair_fp32_bound_ms"]),
+              bwd["library_ms"], fp32_bound_ms=bwd["pair_fp32_bound_ms"],
+              sass=sass_of("flash_bwd_fused")),
     ]
     for k in kernels:
         if not k["launches"]:

@@ -7,9 +7,9 @@ nor the JAX package, so it runs where only torch is installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu_kernels.py
 
 Tolerance: 1e-4 abs at unit-scale inputs (fp32 sums in another order;
-K2's products in 3xTF32 on the tensor cores); for the gradients, 1e-4 of
-each one's largest element (at least 1): they grow with T, and K4 adds dq
-with atomics in an order that changes."""
+the products of K1, K2 and K4 in 3xTF32 on the tensor cores); for the
+gradients, 1e-4 of each one's largest element (at least 1): they grow
+with T, and K4 adds dq with atomics in an order that changes."""
 import itertools
 
 import pytest
@@ -36,6 +36,13 @@ def card():
     (3, 200, 2, 128, False, "bthd", None),
     (2, 333, 3, 64, True, "bhtd", None),
     (3, 130, 2, 64, False, "bthd", [0, 1, 129]),
+] + [
+    # one row past a 128-row tile, and a single row (chip_smoke.py's cases)
+    (2, t, 2, d, causal, layout, None) for t, d, causal, layout in
+    itertools.product((129, 1), (64, 128), (True, False), ("bthd", "bhtd"))
+] + [
+    (3, 129, 2, 128, True, "bthd", [0, 1, 129]),
+    (3, 129, 2, 128, False, "bhtd", [0, 1, 129]),
 ])
 def test_flash_kernel_matches_plain(card, b, t, h, d, causal, layout,
                                     lengths):
@@ -52,7 +59,11 @@ def test_flash_kernel_matches_plain(card, b, t, h, d, causal, layout,
     ref, ref_lse = pt_attn.flash_attention_plain(q, k, v, causal=causal,
                                                  lengths=lens, layout=layout)
     torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
     assert float((out - ref).abs().max()) <= TOL
+    for i, n in enumerate(lengths or []):
+        if n == 0:
+            assert bool((out[i] == 0).all())
     live = torch.isfinite(ref_lse)
     assert bool((torch.isfinite(lse) == live).all())
     assert float((lse[live] - ref_lse[live]).abs().max()) <= TOL

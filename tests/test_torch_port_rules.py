@@ -252,9 +252,10 @@ def test_chip_smoke_slice_rehearses_on_cpu(tmp_path):
 
 def test_chip_smoke_counts_tensor_core_instructions_per_kernel():
     """chip_smoke's SASS check: cuobjdump's -sass and -res-usage output
-    (abridged, in the toolkit's format) turn into each K2 kernel's
-    tensor-core instruction count, registers, stack and local memory, per
-    head-dim instantiation; other kernels are left out."""
+    (abridged, in the toolkit's format) turn into each named kernel's TF32
+    tensor-core instruction count (a tensor-core instruction of another
+    type does not count), registers, stack and local memory, per head-dim
+    instantiation; other kernels are left out."""
     sys.path.insert(0, ROOT)
     try:
         import chip_smoke
@@ -272,6 +273,7 @@ def test_chip_smoke_counts_tensor_core_instructions_per_kernel():
         "        /*0010*/  LDSM.16.M88.4 R4, [R2] ;",
         "        /*0020*/  HMMA.1688.F32.TF32 R8, R4, R12, R8 ;",
         "        /*0030*/  HMMA.1688.F32.TF32 R8, R16, R12, R8 ;",
+        "        /*0040*/  HMMA.16816.F32 R8, R16, R12, R8 ;",
         "\t\tFunction : %s" % dkv128,
         "        /*0010*/  HGMMA.64x64x8.F32.TF32 R24, gdesc[UR4], R24 ;",
         "        /*0020*/  FADD R1, R2, R3 ;",
