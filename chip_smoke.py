@@ -16,21 +16,27 @@ Each phase prints one JSON line:
    the training shape (B 16, T 1024, 16 heads of 64, causal, both
    layouts), the serving shapes and edge cases (ragged T, head dim 128,
    KV lengths 0, 77, 200; T 129 and T 1 at both head dims, causal or
-   not, in both layouts, and lengths 0, 1, 129; slot lengths 0, 1 and
-   S), each with its max abs error against a stated tolerance (the
-   "K1 worst" line: K1's over all its cases) and, at the main shapes,
-   its device time (REPS calls captured in one CUDA graph, the replay
-   timed by CUDA events), beside the plain version's time, the bound,
-   and the time of torch's scaled_dot_product_attention on the same
-   inputs (forward; for the backward, forward + backward minus forward),
-   a yardstick only: the port never calls it. The bound of an attention
+   not, in both layouts, and lengths 0, 1, 129; K3's slot lengths 0, 1,
+   its split size - 1, split, + 1, S - 1, S and S + 1 at both head dims,
+   and two calls on the same inputs bitwise equal), each with its max abs
+   error against a stated tolerance (the "K1 worst" and "K3 worst" lines:
+   over all of a kernel's cases) and, at the main shapes (K3: the slice's
+   last-step lengths, every slot full and every slot empty), its device
+   time (REPS calls captured in one CUDA graph, the replay timed by CUDA
+   events), beside the plain version's time, the bound, and the time of
+   torch's scaled_dot_product_attention on the same inputs (forward; for
+   the backward, forward + backward minus forward), a yardstick only:
+   the port never calls it. The bound of an attention
    kernel counts its fp32-accurate products at the tensor cores' 3xTF32
    rate, the least time the card could take for them (K1, K2 and K4 run
    them that way); the CUDA-core fp32 bound rides beside it as
    fp32_bound_ms. K1's, K2's and K4's entries also carry, from cuobjdump
    of the built libraries, each kernel's TF32 HMMA/HGMMA count (the run
-   fails if one is 0), registers and local memory (the "SASS" line), and
-   K1's its numbers at the serving prefill shape too (serving_*).
+   fails if one is 0), registers and local memory (the "SASS" line);
+   K1's its numbers at the serving prefill shape too (serving_*), and
+   K3's its numbers with every slot full (full_*) and its time with every
+   slot empty (empty_ms) and its device time and launches in the
+   profiled generate call.
 3. train: the flagship training config (bench.py's LM phase: vocab
    32768, 12 layers, d_model 1024, 16 heads, d_inner 4096, seq 1024,
    batch 16, Adam 1e-4), fp32, random weights from the port's own startup
@@ -56,7 +62,10 @@ Each phase prints one JSON line:
    the kernels and once with the plain attention, and the logits of every
    step must agree within a stated tolerance. Last, one more generate call
    runs under torch.profiler, as the training step did
-   (build/chip_smoke/generate_ops.txt).
+   (build/chip_smoke/generate_ops.txt); K3's device time and launches in
+   that call ride on the slice line as k3_device_ms and
+   k3_device_launches. The profile's "attention" is every kernel that
+   the port's csrc/ sources declare.
 
 Then one line with K1's BHTD and K2's pair numbers, one line
 {"kernels": [...]} (every kernel, with its launches on each main path,
@@ -70,8 +79,10 @@ import argparse
 import contextlib
 import itertools
 import json
+import functools
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -155,7 +166,8 @@ def time_ms(fn, warmup=3):
     """Mean device time of one call of ``fn``: REPS calls captured in one
     CUDA graph, whose replay CUDA events time. The host's work (the
     wrapper's checks and allocations, the ctypes call) stays out of it, so
-    the figure does not move with the host's speed."""
+    the figure does not move with the host's speed. The warm-up runs on
+    the stream that is then captured (K3 keeps its counters per stream)."""
     import torch
 
     side = torch.cuda.Stream()
@@ -165,7 +177,7 @@ def time_ms(fn, warmup=3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(REPS):
             fn()
     graph.replay()
@@ -426,7 +438,15 @@ def check_flash_bwd(torch, gen, dev, b, t, h, d, causal, layout,
     return res
 
 
-def check_decode(torch, gen, dev, b, s, h, d, lengths, time_it=False):
+def check_decode(torch, gen, dev, b, s, h, d, lengths, time_it=False,
+                 yardsticks=True):
+    """K3 against its plain version (a length past S reads S rows, a length
+    of 0 gives exact zeros) and against itself: a second call on the same
+    inputs must be bitwise the first, whichever block merges. With
+    time_it, K3's time and bound, and with yardsticks the plain version's
+    and the library's times too (each timing of the plain version leaves
+    a cuBLAS workspace allocated for its side stream, which the training
+    phase's peak memory then counts)."""
     from paddle_tpu_torch.ops.kv_cache import (decode_attention,
                                                decode_attention_plain)
 
@@ -435,17 +455,21 @@ def check_decode(torch, gen, dev, b, s, h, d, lengths, time_it=False):
     vc = torch.randn((b, s, h, d), generator=gen, device=dev)
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
     out = decode_attention(q, kc, vc, lens)
+    again = decode_attention(q, kc, vc, lens)
     ref = decode_attention_plain(q, kc, vc, lens)
     torch.cuda.synchronize()
     err = float((out - ref).abs().max())
     zero_ok = all(bool((out[i] == 0).all())
                   for i, n in enumerate(lengths) if n == 0)
-    if not (torch.isfinite(out).all() and err <= KERNEL_TOL and zero_ok):
+    bitwise = bool(torch.equal(out, again))
+    if not (torch.isfinite(out).all() and err <= KERNEL_TOL and zero_ok
+            and bitwise):
         fail("K3 disagrees with its plain version at B=%d S=%d H=%d D=%d "
-             "lengths %s: err %.3g (tolerance %g), length-0 rows zero: %s"
-             % (b, s, h, d, lengths, err, KERNEL_TOL, zero_ok))
+             "lengths %s: err %.3g (tolerance %g), length-0 rows zero: %s, "
+             "two calls bitwise equal: %s"
+             % (b, s, h, d, lengths, err, KERNEL_TOL, zero_ok, bitwise))
     res = {"case": "K3", "shape": [b, s, h, d], "lengths": list(lengths),
-           "max_abs_err": err, "tol": KERNEL_TOL}
+           "max_abs_err": err, "tol": KERNEL_TOL, "bitwise_repeat": bitwise}
     if time_it:
         tf = torch.nn.functional
         mask = (torch.arange(s, device=dev)[None, :]
@@ -463,12 +487,13 @@ def check_decode(torch, gen, dev, b, s, h, d, lengths, time_it=False):
 
         res["ms"] = time_ms(turn(
             lambda kk, vv: decode_attention(q, kk, vv, lens)))
-        res["plain_ms"] = time_ms(turn(
-            lambda kk, vv: decode_attention_plain(q, kk, vv, lens)))
-        res["library_ms"] = time_ms(turn(
-            lambda kk, vv: tf.scaled_dot_product_attention(
-                q.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2),
-                attn_mask=mask)))
+        if yardsticks:
+            res["plain_ms"] = time_ms(turn(
+                lambda kk, vv: decode_attention_plain(q, kk, vv, lens)))
+            res["library_ms"] = time_ms(turn(
+                lambda kk, vv: tf.scaled_dot_product_attention(
+                    q.transpose(1, 2), kk.transpose(1, 2),
+                    vv.transpose(1, 2), attn_mask=mask)))
         flops, nbytes = decode_work(b, h, d, np.asarray(lengths))
         res["bound_ms"], res["bound_by"] = bound(flops, nbytes)
         res["gflop"], res["mbytes"] = flops / 1e9, nbytes / 1e6
@@ -686,6 +711,10 @@ def run_slice(config, prompt_lens, max_new, seed, place, workdir):
         fail("teacher-forced check failed: %s" % json.dumps(res))
     if cuda:
         res["profile"] = profile_generate(pred, prompts, max_new, workdir)
+        k3 = res["profile"]["port_kernels"].get(
+            "decode_attn", {"device_ms": 0.0, "launches": 0})
+        res["k3_device_ms"] = k3["device_ms"]
+        res["k3_device_launches"] = k3["launches"]
     shutil.rmtree(model_dir, ignore_errors=True)
     return res
 
@@ -698,13 +727,37 @@ def profile_generate(pred, prompts, max_new, out_dir):
         os.path.join(out_dir, "generate_ops.txt"))
 
 
+@functools.lru_cache(maxsize=None)
+def port_kernels():
+    """{source: (kernel names)}: every __global__ function that the port's
+    CUDA sources (paddle_tpu_torch/csrc/*.cu) declare, by source name."""
+    csrc = os.path.join(_ROOT, "paddle_tpu_torch", "csrc")
+    decl = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\s*"
+                      r"\((?:[^()]|\([^()]*\))*\)\s*)?(\w+)\s*\(")
+    found = {}
+    for fname in sorted(os.listdir(csrc)):
+        if fname.endswith(".cu"):
+            with open(os.path.join(csrc, fname)) as f:
+                found[fname[:-3]] = tuple(decl.findall(f.read()))
+    return found
+
+
+def _port_source(name):
+    """The port's source whose kernel the profiler's ``name`` is (its
+    demangled name carries the declared one), or None."""
+    for src, kernels in port_kernels().items():
+        if any(re.search(r"\b%s\b" % k, name) for k in kernels):
+            return src
+    return None
+
+
 def _kernel_kind(name):
     """products (cuBLAS/CUTLASS matrix products), attention (the port's
-    hand-written kernels), or other (elementwise, reductions, copies)."""
-    low = name.lower()
-    if low.startswith(("flash_", "decode_attn")) or "flash_bwd" in low \
-            or "flash_fwd" in low or "decode_attn" in low:
+    hand-written kernels: every kernel its csrc/ sources declare), or
+    other (elementwise, reductions, copies)."""
+    if _port_source(name) is not None:
         return "attention"
+    low = name.lower()
     if any(w in low for w in ("gemm", "xmma", "cutlass", "cublas")):
         return "products"
     return "other"
@@ -735,8 +788,16 @@ def profile_call(fn, table_path):
                   key=lambda e: -e.self_cpu_time_total)
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
     by_kind = {"products": 0.0, "attention": 0.0, "other": 0.0}
+    by_source = {}
     for e in dev:
-        by_kind[_kernel_kind(e.key)] += e.self_device_time_total / 1e3
+        ms = e.self_device_time_total / 1e3
+        by_kind[_kernel_kind(e.key)] += ms
+        src = _port_source(e.key)
+        if src is not None:
+            got = by_source.setdefault(src, {"device_ms": 0.0,
+                                             "launches": 0})
+            got["device_ms"] += ms
+            got["launches"] += e.count
     with open(table_path, "w") as f:
         f.write(events.table(sort_by="self_cuda_time_total", row_limit=40))
         f.write("\n")
@@ -745,6 +806,7 @@ def profile_call(fn, table_path):
         "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "device_ms_by_kind": by_kind,
+        "port_kernels": by_source,
         "device_top": [[e.key[:80], e.count, e.self_device_time_total / 1e3]
                        for e in dev[:15]],
         "host_top": [[e.key[:80], e.count, e.self_cpu_time_total / 1e3]
@@ -1045,13 +1107,34 @@ def main(argv=None):
             if not got.get("tc_instructions"):
                 fail("%s<%d> has no TF32 tensor-core instruction in its "
                      "SASS: %s" % (name, d, got))
-    S = 2048
+    # K3 at the slice's last-step lengths, with every slot full and with
+    # every slot empty (all timed: the two first give its rate and what a
+    # call costs beside the bytes, the last the cost of its grid alone),
+    # then edge lengths around its split and the slab's end (one past S,
+    # which reads S rows) at both head dims
+    from paddle_tpu_torch.ops.kv_cache import decode_kernel_split
+
+    S, split = 2048, decode_kernel_split()
     k3 = check_decode(torch, gen, dev, 8, S, 8, 128,
                       [int(n) + MAX_NEW - 1 for n in prompt_lens],
                       time_it=True)
-    check_decode(torch, gen, dev, 8, S, 8, 128,
-                 [0, 1, 1000, S, 511, 512, 513, 7])
-    check_decode(torch, gen, dev, 4, 300, 2, 64, [0, 1, 257, 300])
+    k3_full = check_decode(torch, gen, dev, 8, S, 8, 128, [S] * 8,
+                           time_it=True, yardsticks=False)
+    k3_empty = check_decode(torch, gen, dev, 8, S, 8, 128, [0] * 8,
+                            time_it=True, yardsticks=False)
+    k3_cases = [k3, k3_full, k3_empty]
+    for d in (128, 64):
+        k3_cases.append(check_decode(
+            torch, gen, dev, 8, S, 8, d,
+            [0, 1, split - 1, split, split + 1, S - 1, S, S + 1]))
+    k3_cases.append(check_decode(torch, gen, dev, 8, S, 8, 128,
+                                 [0, 1, 1000, S, 511, 512, 513, 7]))
+    k3_cases.append(check_decode(torch, gen, dev, 4, 300, 2, 64,
+                                 [0, 1, 257, 300]))
+    emit({"case": "K3 worst", "cases": len(k3_cases), "tol": KERNEL_TOL,
+          "split": split,
+          "max_abs_err": max(r["max_abs_err"] for r in k3_cases),
+          "bitwise_repeat": all(r["bitwise_repeat"] for r in k3_cases)})
 
     workdir = os.path.join(_ROOT, "build", "chip_smoke")
     os.makedirs(workdir, exist_ok=True)
@@ -1135,7 +1218,12 @@ def main(argv=None):
               "paddle_tpu/ops/kv_cache.py:88",
               {"generate": sl["launches"]["K3"]},
               k3["max_abs_err"], k3["ms"], k3["plain_ms"],
-              (k3["bound_ms"], k3["bound_by"]), k3["library_ms"]),
+              (k3["bound_ms"], k3["bound_by"]),
+              k3["library_ms"], k3_device_ms=sl["k3_device_ms"],
+              k3_device_launches=sl["k3_device_launches"],
+              **{"full_" + key: k3_full[key] for key in (
+                  "lengths", "ms", "bound_ms", "bound_by")},
+              empty_ms=k3_empty["ms"]),
         entry("flash_bwd_fused", csrc + "flash_bwd_fused.cu",
               "paddle_tpu/ops/attention.py:282",
               {"train_step_fused_bwd": fused_step["K4"]},

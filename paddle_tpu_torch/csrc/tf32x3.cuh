@@ -1,6 +1,7 @@
 // Device helpers of the attention kernels that run their fp32 products on
 // Hopper's tensor cores in 3xTF32: K1 (flash_fwd.cu), K2 (flash_bwd.cu) and
-// K4 (flash_bwd_fused.cu).
+// K4 (flash_bwd_fused.cu); K3 (decode_attn.cu) takes its cp.async group
+// helpers.
 //
 // The arithmetic. An fp32 operand x is split into big = x rounded to TF32
 // and small = x - big, and a product is small*big + big*small, then

@@ -20,7 +20,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 __all__ = ["SOURCES", "BUILD_DIR", "build_all", "load", "library_path",
            "cuda_tool"]
@@ -33,7 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _LOCK = threading.Lock()
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIBS: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -50,10 +50,14 @@ def cuda_tool(name: str) -> str:
     return os.path.join(os.path.dirname(_nvcc()), name)
 
 
-def _target(name: str) -> str:
+def _flags(defines: Tuple[str, ...]) -> list:
+    return [*NVCC_FLAGS, *("-D" + d for d in defines)]
+
+
+def _target(name: str, defines: Tuple[str, ...] = ()) -> str:
     """The library's path, named by a hash of its source, the shared
     headers (``*.cuh``) it may include, and the flags."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(_flags(defines)).encode())
     headers = sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh"))
     for fname in [name + ".cu"] + headers:
         with open(os.path.join(_CSRC, fname), "rb") as f:
@@ -61,18 +65,20 @@ def _target(name: str) -> str:
     return os.path.join(BUILD_DIR, "lib%s-%s.so" % (name, digest.hexdigest()[:12]))
 
 
-def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:
+def build_all(names: Iterable[str] = SOURCES,
+              defines: Tuple[str, ...] = ()) -> Dict[str, float]:
     """Build every library in ``names`` that is not built yet, one nvcc
-    process per source, all started together. Returns the seconds each
-    build took; raises with nvcc's output if one fails."""
+    process per source, all started together, each with the macros
+    ``defines`` ("NAME=VALUE") set. Returns the seconds each build took;
+    raises with nvcc's output if one fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     started = {}
     for name in names:
-        target = _target(name)
+        target = _target(name, defines)
         if os.path.exists(target):
             continue
         tmp = "%s.%d.tmp" % (target, os.getpid())
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+        cmd = [_nvcc(), *_flags(defines), "-o", tmp,
                os.path.join(_CSRC, name + ".cu")]
         started[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT, text=True),
@@ -90,13 +96,16 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:
     return seconds
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel source ``name``, built on first use."""
+def load(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded library of kernel source ``name``, built on first use
+    (with the macros ``defines`` set: a variant, in a library of its
+    own)."""
+    key = (name, tuple(defines))
     with _LOCK:
-        lib = _LIBS.get(name)
+        lib = _LIBS.get(key)
         if lib is None:
-            build_all([name])
-            lib = _LIBS[name] = ctypes.CDLL(_target(name))
+            build_all([name], key[1])
+            lib = _LIBS[key] = ctypes.CDLL(_target(*key))
         return lib
 
 

@@ -30,6 +30,24 @@ from .registry import register_op
 _NEG = -1e30
 _HEAD_DIMS = (64, 128)
 _FN = None
+# K3's per-(b, h) counters, zeroed once per (device, stream, B*H) and left
+# zeroed by every launch (see csrc/decode_attn.cu); calls on one stream
+# never overlap, so they may share a buffer
+_COUNTERS = {}
+
+
+def _bind(lib):
+    """K3's C entry points in a loaded ``decode_attn`` library: (launch,
+    scratch floats, error string). ``_launch`` calls them."""
+    fn = lib.decode_attn_f32
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.decode_attn_scratch_floats.argtypes = [ctypes.c_int] * 4
+    lib.decode_attn_scratch_floats.restype = ctypes.c_longlong
+    lib.decode_attn_error_string.restype = ctypes.c_char_p
+    lib.decode_attn_error_string.argtypes = [ctypes.c_int]
+    return fn, lib.decode_attn_scratch_floats, lib.decode_attn_error_string
 
 
 def _kernel():
@@ -38,17 +56,46 @@ def _kernel():
     if _FN is None:
         from ..kernels import load
 
-        lib = load("decode_attn")
-        fn = lib.decode_attn_f32
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        lib.decode_attn_parts.argtypes = [ctypes.c_int]
-        lib.decode_attn_parts.restype = ctypes.c_int
-        lib.decode_attn_error_string.restype = ctypes.c_char_p
-        lib.decode_attn_error_string.argtypes = [ctypes.c_int]
-        _FN = (fn, lib.decode_attn_parts, lib.decode_attn_error_string)
+        _FN = _bind(load("decode_attn"))
     return _FN
+
+
+def _launch(fns, q, k_cache, v_cache, lengths, out, part, counters, scale):
+    """One launch of K3 (the entry points ``fns`` of ``_bind``) on the
+    current stream; the tensors already checked, ``part`` and ``counters``
+    as the C interface asks."""
+    fn, _scratch_floats, err_str = fns
+    b, _one, h, d = q.shape
+    err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+             lengths.data_ptr(), out.data_ptr(), part.data_ptr(),
+             counters.data_ptr(), b, h, k_cache.shape[1], d, float(scale),
+             q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError("decode attention kernel launch failed: %s"
+                           % err_str(err).decode())
+
+
+def decode_kernel_split():
+    """Keys per block of K3 (the unit its grid splits the slab into)."""
+    from ..kernels import load
+
+    return int(load("decode_attn").decode_attn_split())
+
+
+def _counters(device, n):
+    stream = torch.cuda.current_stream(device)
+    key = (device.index, stream.cuda_stream, n)
+    buf = _COUNTERS.get(key)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            # made here, the buffer would come from the graph's memory and
+            # be zeroed only when the graph replays
+            raise RuntimeError(
+                "decode attention: call it once on this stream before "
+                "capturing the stream into a CUDA graph")
+        buf = _COUNTERS[key] = torch.zeros(n, dtype=torch.int32,
+                                           device=device)
+    return buf
 
 
 def decode_attention_plain(q, k_cache, v_cache, lengths, scale=None):
@@ -77,8 +124,11 @@ def decode_attention(q, k_cache, v_cache, lengths, scale=None):
     """Single-query attention against BTHD slabs; see
     decode_attention_plain for the contract. CPU tensors run the plain
     version. CUDA tensors launch K3 (fp32, Dh 64 or 128, contiguous
-    tensors that start on 16-byte boundaries: its row loads are float4
-    or float2) or raise."""
+    tensors that start on 16-byte boundaries: its row loads are 16-byte
+    copies) or raise. One launch, on the current stream; it allocates its
+    output and one scratch buffer, and shares the per-(b, h) counters of
+    its (device, stream, B*H) with the calls before it on that stream. A
+    stream is captured into a CUDA graph only after one call on it."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, lengths, scale)
     b, one, h, d = q.shape
@@ -108,26 +158,17 @@ def decode_attention(q, k_cache, v_cache, lengths, scale=None):
         if x.device.type != "cuda" or x.device != q.device:
             raise ValueError("decode attention: %s is on %s, q on %s"
                              % (name, x.device, q.device))
-    lengths = lengths.reshape(b).to(device=q.device,
-                                    dtype=torch.int32).contiguous()
+    # no copy and no kernel when lengths is int32 on q's device already
+    lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    fn, parts_of, err_str = _kernel()
-    parts = parts_of(s)
+    fns = _kernel()
+    counters = _counters(q.device, b * h)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
-    part_acc = torch.empty((b * h * parts * d,), dtype=torch.float32,
-                           device=q.device)
-    part_m = torch.empty((b * h * parts,), dtype=torch.float32,
-                         device=q.device)
-    part_l = torch.empty_like(part_m)
-    err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-             lengths.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
-             part_m.data_ptr(), part_l.data_ptr(), b, h, s, d, float(scale),
-             q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
+    part = torch.empty((fns[1](b, h, s, d),), dtype=torch.float32,
+                       device=q.device)
+    _launch(fns, q, k_cache, v_cache, lengths, out, part, counters, scale)
     decode_attention.launches += 1
-    if err:
-        raise RuntimeError("decode attention kernel launch failed: %s"
-                           % err_str(err).decode())
     return out
 
 

@@ -73,8 +73,15 @@ def test_flash_kernel_matches_plain(card, b, t, h, d, causal, layout,
 @pytest.mark.parametrize("b, s, h, d, lengths", [
     (4, 2048, 8, 128, [0, 1, 1000, 2048]),
     (3, 300, 2, 64, [7, 256, 300]),
+    # around the kernel's split size and the slab's end (chip_smoke.py's
+    # cases; "edges" is filled in with the split once the kernel is built)
+    (8, 2048, 8, 128, "edges"),
+    (8, 2048, 8, 64, "edges"),
 ])
 def test_decode_kernel_matches_plain(card, b, s, h, d, lengths):
+    if lengths == "edges":
+        split = pt_kv.decode_kernel_split()
+        lengths = [0, 1, split - 1, split, split + 1, s - 1, s, s + 1]
     g = torch.Generator(device=card).manual_seed(s)
     q = torch.randn((b, 1, h, d), generator=g, device=card)
     kc, vc = (torch.randn((b, s, h, d), generator=g, device=card)
@@ -83,12 +90,75 @@ def test_decode_kernel_matches_plain(card, b, s, h, d, lengths):
     before = pt_kv.decode_attention.launches
     out = pt_kv.decode_attention(q, kc, vc, lens)
     assert pt_kv.decode_attention.launches == before + 1
+    again = pt_kv.decode_attention(q, kc, vc, lens)
     ref = pt_kv.decode_attention_plain(q, kc, vc, lens)
     torch.cuda.synchronize()
     assert float((out - ref).abs().max()) <= TOL
+    assert torch.equal(out, again)  # whichever block merges
     for i, n in enumerate(lengths):
         if n == 0:
             assert bool((out[i] == 0).all())
+
+
+def _decode_inputs(card, seed, b, s, h, d, lengths):
+    g = torch.Generator(device=card).manual_seed(seed)
+    return (torch.randn((b, 1, h, d), generator=g, device=card),
+            torch.randn((b, s, h, d), generator=g, device=card),
+            torch.randn((b, s, h, d), generator=g, device=card),
+            torch.tensor(lengths, dtype=torch.int32, device=card))
+
+
+@pytest.mark.gpu
+def test_decode_kernel_on_two_streams(card):
+    """K3 keeps its per-(b, h) counters per stream: calls queued on two
+    streams at once (same B*H) both match the plain version, and every
+    counter ends at zero."""
+    b, s, h, d = 8, 2048, 8, 128
+    ins = [_decode_inputs(card, seed, b, s, h, d, lengths)
+           for seed, lengths in (
+               (1, [2048, 1, 700, 64, 65, 0, 1500, 129]),
+               (2, [1000, 2048, 3, 640, 128, 0, 63, 2047]))]
+    streams = [torch.cuda.Stream(card) for _ in ins]
+    assert streams[0].cuda_stream != streams[1].cuda_stream
+    outs = [[], []]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream(card))
+    for _ in range(20):
+        for st, args, got in zip(streams, ins, outs):
+            with torch.cuda.stream(st):
+                got.append(pt_kv.decode_attention(*args))
+    torch.cuda.synchronize()
+    for args, got in zip(ins, outs):
+        ref = pt_kv.decode_attention_plain(*args)
+        for out in got:
+            assert float((out - ref).abs().max()) <= TOL
+    for st in streams:
+        assert not pt_kv._COUNTERS[(card.index, st.cuda_stream, b * h)].any()
+
+
+@pytest.mark.gpu
+def test_decode_kernel_in_cuda_graph(card, monkeypatch):
+    """A stream K3 has run on can be captured: the replays match the
+    plain version. Counters are never made while a stream is captured
+    (they would come from the graph's memory, zeroed only by a replay)."""
+    args = _decode_inputs(card, 3, 4, 512, 2, 64, [0, 1, 300, 512])
+    side = torch.cuda.Stream(card)
+    side.wait_stream(torch.cuda.current_stream(card))
+    with torch.cuda.stream(side):
+        pt_kv.decode_attention(*args)
+    torch.cuda.current_stream(card).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = pt_kv.decode_attention(*args)
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    ref = pt_kv.decode_attention_plain(*args)
+    assert float((out - ref).abs().max()) <= TOL
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    with pytest.raises(RuntimeError, match="before capturing"):
+        pt_kv._counters(card, 7919)  # a B*H no call has used
 
 
 @pytest.mark.gpu

@@ -4,8 +4,10 @@ the card unless asked for the CPU; its kernel wrappers refuse what their
 kernels do not take and never fall back; chip_smoke.py fails without a
 card; the interpreter names a failing op; and chip_smoke's main-path
 runs (training, serving) go end to end at a tiny size on the CPU."""
+import glob
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -304,3 +306,35 @@ def test_chip_smoke_counts_tensor_core_instructions_per_kernel():
     assert by == "operations" and abs(ms - 1.0) < 1e-9
     ms, by = chip_smoke.bound(1e9, 3.35e9)
     assert by == "bytes" and abs(ms - 1.0) < 1e-9
+
+
+def test_chip_smoke_counts_every_port_kernel_as_attention():
+    """chip_smoke's profile calls every kernel that a csrc/*.cu source
+    declares "attention", under the name the profiler prints for it (a
+    decode kernel once fell into "other"); a cuBLAS sgemm stays
+    "products" and an elementwise kernel "other"."""
+    sys.path.insert(0, ROOT)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(ROOT)
+    decl = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\s*"
+                      r"\([^;{]*?\)\s+)?(\w+)\s*\(")
+    names = {}
+    for path in glob.glob(os.path.join(ROOT, "paddle_tpu_torch", "csrc",
+                                       "*.cu")):
+        with open(path) as f:
+            for name in decl.findall(f.read()):
+                names[name] = os.path.basename(path)[:-3]
+    assert "decode_attn" in names.values() and len(names) >= 5, names
+    for name, src in names.items():
+        printed = ("void (anonymous namespace)::%s<128>(float const*, "
+                   "float const*, float const*, int const*, float*)" % name)
+        assert chip_smoke._kernel_kind(printed) == "attention", printed
+        assert chip_smoke._port_source(printed) == src
+    assert chip_smoke._kernel_kind(
+        "void cutlass::Kernel2<cutlass_80_simt_sgemm_128x32_8x5_nn_align1>"
+        "(cutlass_80_simt_sgemm_128x32_8x5_nn_align1::Params)") == "products"
+    assert chip_smoke._kernel_kind(
+        "void at::native::vectorized_elementwise_kernel<4, at::native::"
+        "CUDAFunctor_add<float>>(int, ...)") == "other"
