@@ -38,15 +38,25 @@ Each phase prints one JSON line:
    slot empty (empty_ms) and its device time and launches in the
    profiled generate call.
    Then the bf16 twins, K1-bf16, K2-bf16 (dq, dk/dv) and K4-bf16, at the
-   training shape and at Dh 128 (B 8, T 1024, H 8; both timed), in BHTD
-   and at the fp32 kernels' edge cases: each, and its plain bf16
-   version, against fp32 attention on the same bf16-valued inputs (the
-   kernel's error within BF16_ERR_RATIO of the plain version's and
-   BF16_ULPS bf16 ulps; "K1-bf16 worst" and "K2/K4-bf16 worst" lines);
-   timed on q pre-scaled as the op pre-scales it, beside the bound at the
-   bf16 tensor-core rate (989 TFLOP/s) and bf16 bytes, and
+   training shape and at Dh 128 (B 8, T 1024, H 8; both timed), in BHTD,
+   at the fp32 kernels' edge cases and at the bf16 kernels' tile edges
+   (BF16_EDGE_T at both head dims, both layouts, causal or not; Tq apart
+   from Tk across those edges; KV lengths one key either side of a 64-
+   and a 128-key edge; one batch or one head, BF16_EDGE_BH): each, and
+   its plain bf16 version, against fp32 attention on the same
+   bf16-valued inputs (the kernel's error within BF16_ERR_RATIO of the
+   plain version's and BF16_ULPS bf16 ulps), and K1-bf16 and K2-bf16
+   called twice on the same inputs bitwise equal ("K1-bf16 worst" and
+   "K2/K4-bf16 worst" lines); timed on q pre-scaled as the op pre-scales
+   it (device time, and the wrapper's host time per call: host_us with
+   its tensor maps cached, host_us_new_maps with every map encoded anew,
+   fp32_host_us of the fp32 K1 or K2 in the same rounds, and from the
+   first two map_encode_us, the host time of one map), beside the bound
+   at the bf16 tensor-core rate (989 TFLOP/s) and bf16 bytes, and
    scaled_dot_product_attention in bf16. The "SASS" line counts their
-   bf16 HMMA instructions (the run fails if one is 0).
+   bf16 tensor-core instructions, HGMMA (wgmma) and HMMA (mma.sync)
+   apart: the run fails if one has none, and if K1-bf16 or K2-bf16 (the
+   wgmma kernels) has no HGMMA or any local memory.
 3. train: the flagship training config (bench.py's LM phase: vocab
    32768, 12 layers, d_model 1024, 16 heads, d_inner 4096, seq 1024,
    batch 16, Adam 1e-4), fp32, random weights from the port's own startup
@@ -167,6 +177,17 @@ ZERO_GRAD_TOL = 1e-5
 # the plain version's.
 BF16_ERR_RATIO = 2.0
 BF16_ULPS = 8
+# the bf16 edge cases: T around the 64- and 128-row tiles of K1-bf16 and
+# K2-bf16 (and T 1); Tq apart from Tk across those edges; KV lengths one
+# key before and one after a 64- and a 128-key edge
+BF16_EDGE_T = (1, 63, 64, 65, 127, 128, 129, 191, 193)
+BF16_EDGE_TQ_TK = ((65, 193, False), (193, 63, True), (129, 191, True),
+                   (127, 65, False))
+BF16_EDGE_LENGTHS = [63, 65, 127, 129]
+# (B, H) with one batch or one head: a tensor map's axis of size 1
+BF16_EDGE_BH = ((1, 3), (3, 1))
+# the kernels that run on wgmma (the SASS line's HGMMA count)
+WGMMA_KERNELS = ("flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16")
 # The bf16 O2 training step with the kernels, (a), against the same step
 # with the plain bf16 attention, (b), relative to (b)'s distance from the
 # fp32 step, (e). Both are bf16 runs of one algorithm whose sums go in
@@ -246,6 +267,55 @@ def time_ms(fn, warmup=3):
     return start.elapsed_time(end) / REPS
 
 
+def host_us_each(fns, calls=50, rounds=21):
+    """Host time of one call of each function of the dict ``fns`` in
+    microseconds: the median over ``rounds`` rounds, each of which times
+    ``calls`` calls of every function in turn, back to back on the host
+    clock, the device left to catch up after each (its queue does not
+    fill in that many). What a wrapper costs the host: checks,
+    allocations, tensor maps, the ctypes call and the launch. The host is
+    shared and one round alone swings by 2x, so the functions that are
+    compared share every round."""
+    import torch
+
+    for fn in fns.values():
+        for _ in range(3):
+            fn()
+    times = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            times[name].append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return {name: sorted(t)[rounds // 2] for name, t in times.items()}
+
+
+def host_us(fn):
+    """host_us_each of the one function ``fn``."""
+    return host_us_each({"fn": fn})["fn"]
+
+
+def fresh_addresses(torch, tensors, calls=50, rounds=21):
+    """For each of the contiguous ``tensors``, one view of its values for
+    every call that host_us_each makes of a function (3 + calls x
+    rounds), each at its own address 16 bytes past the one before: a
+    tensor map cached by address never serves one of them, so a wrapper
+    called on them encodes every map anew."""
+    n = 3 + calls * rounds
+    views = []
+    for x in tensors:
+        assert x.is_contiguous()
+        step = 16 // x.element_size()
+        flat = x.reshape(-1)
+        buf = torch.cat([flat] * (1 + -(-step * n // flat.numel())))
+        views.append([buf.as_strided(x.shape, x.stride(), step * i)
+                      for i in range(n)])
+    return list(zip(*views))
+
+
 def bound(flops, nbytes, peak_flops=PEAK_3XTF32_FLOPS):
     """(bound_ms, bound_by): the least time the card could take, with the
     products at ``peak_flops`` (by default fp32-accurate on the tensor
@@ -258,9 +328,9 @@ def bound(flops, nbytes, peak_flops=PEAK_3XTF32_FLOPS):
 def sass_report(lib_path, kernels, kind="TF32"):
     """Per instantiation of each kernel in ``kernels`` (function names) in
     the built library: its tensor-core instructions of type ``kind``
-    (HMMA or HGMMA with a .TF32, or .BF16, type) from ``cuobjdump
-    -sass``, and its registers, stack and local memory from ``cuobjdump
-    -res-usage``."""
+    (.TF32 or .BF16) from ``cuobjdump -sass``, in all and apart as HGMMA
+    (wgmma) and HMMA (mma.sync), and its registers, stack and local
+    memory from ``cuobjdump -res-usage``."""
     from paddle_tpu_torch.kernels import cuda_tool
 
     def dump(flag):
@@ -274,9 +344,9 @@ def sass_report(lib_path, kernels, kind="TF32"):
 
 
 def parse_sass(sass, res_usage, kernels, kind="TF32"):
-    """See sass_report: {"<kernel><D>": {"tc_instructions", "regs",
-    "stack", "local"}} for the template instantiations (on the head dim)
-    of the named kernels."""
+    """See sass_report: {"<kernel><D>": {"tc_instructions", "hgmma",
+    "hmma", "regs", "stack", "local"}} for the template instantiations
+    (on the head dim) of the named kernels."""
     import re
 
     def key(mangled):
@@ -292,9 +362,12 @@ def parse_sass(sass, res_usage, kernels, kind="TF32"):
         if m:
             cur = key(m.group(1))
             if cur:
-                out[cur] = {"tc_instructions": 0}
-        elif cur and re.search(r"\b(HMMA|HGMMA)\.\S*%s" % kind, line):
-            out[cur]["tc_instructions"] += 1
+                out[cur] = {"tc_instructions": 0, "hgmma": 0, "hmma": 0}
+        elif cur:
+            m = re.search(r"\b(HMMA|HGMMA)\.\S*%s" % kind, line)
+            if m:
+                out[cur]["tc_instructions"] += 1
+                out[cur][m.group(1).lower()] += 1
     cur = None
     for line in res_usage.splitlines():
         m = re.search(r"Function (\S+):", line)
@@ -387,6 +460,8 @@ def check_flash(torch, gen, dev, b, t, h, d, causal, layout, lengths=None,
                       for x in (q, k, v))
         res["ms"] = time_ms(lambda: flash_attention_fwd(
             q, k, v, causal=causal, lengths=lens, layout=layout))
+        res["host_us"] = host_us(lambda: flash_attention_fwd(
+            q, k, v, causal=causal, lengths=lens, layout=layout))
         res["plain_ms"] = time_ms(lambda: flash_attention_plain(
             q, k, v, causal=causal, lengths=lens, layout=layout))
         res["library_ms"] = time_ms(lambda: tf.scaled_dot_product_attention(
@@ -465,6 +540,8 @@ def check_flash_bwd(torch, gen, dev, b, t, h, d, causal, layout,
         res["dkv_ms"] = time_ms(lambda: A.flash_attention_bwd_dkv(*args))
         res["pair_ms"] = time_ms(lambda: (A.flash_attention_bwd_dq(*args),
                                           A.flash_attention_bwd_dkv(*args)))
+        res["pair_host_us"] = host_us(lambda: (
+            A.flash_attention_bwd_dq(*args), A.flash_attention_bwd_dkv(*args)))
         res["fused_ms"] = time_ms(lambda: A.flash_attention_bwd_fused(*args))
         res["plain_ms"] = time_ms(lambda: A.flash_attention_bwd_plain(
             q, k, v, out, lse, do, causal, None, lens, layout))
@@ -533,29 +610,46 @@ def _bf16_inputs(torch, gen, dev, shape, n):
             for _ in range(n)]
 
 
+def _shapes(b, t, h, d, layout, tk):
+    """q's shape and k's (Tk keys, Tq if None) in the layout."""
+    tk = t if tk is None else tk
+    if layout == "bthd":
+        return (b, t, h, d), (b, tk, h, d)
+    return (b, h, t, d), (b, h, tk, d)
+
+
 def check_flash_bf16(torch, gen, dev, b, t, h, d, causal, layout,
-                     lengths=None, time_it=False):
+                     lengths=None, time_it=False, tk=None):
     """K1-bf16 (through flash_attention_fwd, which pre-scales q in bf16)
     and its plain bf16 version against fp32 attention on the same
     bf16-valued inputs (bf16_gate); the lse against the plain version's
-    within KERNEL_TOL. With time_it, the kernel on the pre-scaled q, the
-    plain version on it, and scaled_dot_product_attention on the bf16
-    inputs, beside the bound at the bf16 tensor-core rate."""
+    within KERNEL_TOL; a second call on the same inputs bitwise the first.
+    ``tk`` keys (Tq if None). With time_it, the kernel on the pre-scaled
+    q (device and host time), the plain version on it, and
+    scaled_dot_product_attention on the bf16 inputs, beside the bound at
+    the bf16 tensor-core rate."""
     from paddle_tpu_torch.ops import attention as A
 
-    shape = (b, t, h, d) if layout == "bthd" else (b, h, t, d)
-    q, k, v = _bf16_inputs(torch, gen, dev, shape, 3)
+    shape, kshape = _shapes(b, t, h, d, layout, tk)
+    q, = _bf16_inputs(torch, gen, dev, shape, 1)
+    k, v = _bf16_inputs(torch, gen, dev, kshape, 2)
     lens = None
     if lengths is not None:
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
     out, lse = A.flash_attention_fwd(q, k, v, causal, None, lens, layout)
+    again = A.flash_attention_fwd(q, k, v, causal, None, lens, layout)
     plain, plain_lse = A.flash_attention_plain(q, k, v, causal, None, lens,
                                                layout)
     ref, _ = A.flash_attention_plain(q.float(), k.float(), v.float(),
                                      causal, None, lens, layout)
     torch.cuda.synchronize()
-    where = "%s causal=%s %s lengths %s" % (shape, causal, layout, lengths)
+    where = "%s keys %s causal=%s %s lengths %s" % (shape, kshape, causal,
+                                                    layout, lengths)
     gate = bf16_gate("K1-bf16", out, plain, ref, where)
+    bitwise = bool(torch.equal(out, again[0])) and bool(
+        torch.equal(lse, again[1]))
+    if not bitwise:
+        fail("K1-bf16: two calls on the same inputs differ at %s" % where)
     finite = torch.isfinite(plain_lse)
     lse_err = float((lse[finite] - plain_lse[finite]).abs().max())
     if lse_err > KERNEL_TOL or not bool(
@@ -564,10 +658,12 @@ def check_flash_bf16(torch, gen, dev, b, t, h, d, causal, layout,
     for i, n in enumerate(lengths or []):
         if n == 0 and not bool((out[i] == 0).all()):
             fail("K1-bf16: a length-0 row is not zero at %s" % where)
-    res = {"case": "K1-bf16", "shape": list(shape), "layout": layout,
-           "causal": causal, "lengths": lengths, "max_abs_err": gate["err"],
+    res = {"case": "K1-bf16", "shape": list(shape), "keys": kshape[
+        1 if layout == "bthd" else 2], "layout": layout, "causal": causal,
+           "lengths": lengths, "max_abs_err": gate["err"],
            "plain_err": gate["plain_err"], "err_ratio": gate["ratio"],
-           "limit": gate["limit"], "lse_max_abs_err": lse_err}
+           "limit": gate["limit"], "lse_max_abs_err": lse_err,
+           "bitwise_repeat": bitwise}
     if time_it:
         tf = torch.nn.functional
         qs = A.prescale_q(q, 1.0 / math.sqrt(d))
@@ -575,6 +671,21 @@ def check_flash_bf16(torch, gen, dev, b, t, h, d, causal, layout,
                       for x in (q, k, v))
         res["ms"] = time_ms(lambda: A.flash_attention_fwd_bf16(
             qs, k, v, causal, lens, layout))
+        # the wrapper's host time with its tensor maps cached (the same
+        # tensors every call), with every map encoded anew (new addresses
+        # every call) and the fp32 K1's, in the same rounds
+        fresh = iter(fresh_addresses(torch, (qs, k, v)))
+        f32 = [x.float() for x in (q, k, v)]
+        hu = host_us_each({
+            "cached": lambda: A.flash_attention_fwd_bf16(
+                qs, k, v, causal, lens, layout),
+            "new_maps": lambda: A.flash_attention_fwd_bf16(
+                *next(fresh), causal, lens, layout),
+            "fp32": lambda: A.flash_attention_fwd(
+                *f32, causal, None, lens, layout)})
+        res["host_us"], res["host_us_new_maps"] = hu["cached"], hu["new_maps"]
+        res["fp32_host_us"] = hu["fp32"]
+        res["map_encode_us"] = (hu["new_maps"] - hu["cached"]) / 3
         res["plain_ms"] = time_ms(lambda: A.flash_attention_plain_bf16(
             qs, k, v, causal, lens, layout))
         res["library_ms"] = time_ms(lambda: tf.scaled_dot_product_attention(
@@ -588,17 +699,19 @@ def check_flash_bf16(torch, gen, dev, b, t, h, d, causal, layout,
 
 
 def check_flash_bwd_bf16(torch, gen, dev, b, t, h, d, causal, layout,
-                         lengths=None, time_it=False):
+                         lengths=None, time_it=False, tk=None):
     """K2-bf16 (dq, then dk/dv) and K4-bf16, through the wrappers that
     pre-scale q and scale dq back, and the plain bf16 backward, on the
     same bf16 q, k, v, dO and K1-bf16's out and lse, each gradient against
     the fp32 backward of fp32 attention on the same bf16-valued inputs
-    (bf16_gate). K4's dq sums with atomics, in an order that changes from
-    run to run."""
+    (bf16_gate); K2-bf16 called twice on the same inputs gives the same
+    bits. K4's dq sums with atomics, in an order that changes from run to
+    run. ``tk`` keys (Tq if None)."""
     from paddle_tpu_torch.ops import attention as A
 
-    shape = (b, t, h, d) if layout == "bthd" else (b, h, t, d)
-    q, k, v, do = _bf16_inputs(torch, gen, dev, shape, 4)
+    shape, kshape = _shapes(b, t, h, d, layout, tk)
+    q, do = _bf16_inputs(torch, gen, dev, shape, 2)
+    k, v = _bf16_inputs(torch, gen, dev, kshape, 2)
     lens = None
     if lengths is not None:
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
@@ -606,6 +719,8 @@ def check_flash_bwd_bf16(torch, gen, dev, b, t, h, d, causal, layout,
     delta = A.attention_delta(out, do, layout)
     args = (q, k, v, lse, delta, do, causal, None, lens, layout)
     split = (A.flash_attention_bwd_dq(*args),) + A.flash_attention_bwd_dkv(
+        *args)
+    again = (A.flash_attention_bwd_dq(*args),) + A.flash_attention_bwd_dkv(
         *args)
     fused = A.flash_attention_bwd_fused(*args)
     plain = A.flash_attention_bwd_plain(q, k, v, out, lse, do, causal, None,
@@ -616,9 +731,14 @@ def check_flash_bwd_bf16(torch, gen, dev, b, t, h, d, causal, layout,
     ref = A.flash_attention_bwd_plain(*f32[:3], out32, lse32, f32[3],
                                       causal, None, lens, layout)
     torch.cuda.synchronize()
-    where = "%s causal=%s %s lengths %s" % (shape, causal, layout, lengths)
-    res = {"case": "K2/K4-bf16", "shape": list(shape), "layout": layout,
-           "causal": causal, "lengths": lengths}
+    where = "%s keys %s causal=%s %s lengths %s" % (shape, kshape, causal,
+                                                    layout, lengths)
+    bitwise = all(bool(torch.equal(x, y)) for x, y in zip(split, again))
+    if not bitwise:
+        fail("K2-bf16: two calls on the same inputs differ at %s" % where)
+    res = {"case": "K2/K4-bf16", "shape": list(shape), "keys": kshape[
+        1 if layout == "bthd" else 2], "layout": layout, "causal": causal,
+           "lengths": lengths, "bitwise_repeat": bitwise}
     worst = {"K2": 0.0, "K4": 0.0}
     for key, got in (("K2", split), ("K4", fused)):
         for name, g, p, r in zip(("dq", "dk", "dv"), got, plain, ref):
@@ -643,6 +763,31 @@ def check_flash_bwd_bf16(torch, gen, dev, b, t, h, d, causal, layout,
         res["pair_ms"] = time_ms(lambda: (
             A.flash_attention_bwd_dq_bf16(*sargs),
             A.flash_attention_bwd_dkv_bf16(*sargs)))
+        # host time as for K1-bf16: maps cached, maps new (ten a pair: dq
+        # four, dk/dv six), and the fp32 K2 pair's
+        fresh = iter(fresh_addresses(torch, (qs, k, v, lse, delta, do)))
+        f32 = [x.float() for x in (q, k, v)]
+        out32, lse32 = A.flash_attention_fwd(*f32, causal, None, lens,
+                                             layout)
+        do32 = do.float()
+        args32 = (*f32, lse32, A.attention_delta(out32, do32, layout), do32,
+                  causal, None, lens, layout)
+
+        def pair_new_maps():
+            a = next(fresh)
+            return (A.flash_attention_bwd_dq_bf16(*a, causal, lens, layout),
+                    A.flash_attention_bwd_dkv_bf16(*a, causal, lens, layout))
+
+        hu = host_us_each({
+            "cached": lambda: (A.flash_attention_bwd_dq_bf16(*sargs),
+                               A.flash_attention_bwd_dkv_bf16(*sargs)),
+            "new_maps": pair_new_maps,
+            "fp32": lambda: (A.flash_attention_bwd_dq(*args32),
+                             A.flash_attention_bwd_dkv(*args32))})
+        res["pair_host_us"] = hu["cached"]
+        res["pair_host_us_new_maps"] = hu["new_maps"]
+        res["fp32_pair_host_us"] = hu["fp32"]
+        res["map_encode_us"] = (hu["new_maps"] - hu["cached"]) / 10
         res["fused_ms"] = time_ms(
             lambda: A.flash_attention_bwd_fused_bf16(*sargs))
         res["plain_ms"] = time_ms(
@@ -1535,17 +1680,33 @@ def main(argv=None):
     k1b_cases.append(check_flash_bf16(torch, gen, dev, 3, 200, 4, 64, True,
                                       "bhtd", lengths=[0, 77, 200]))
     for t, d, causal, layout in itertools.product(
-            (129, 1), (64, 128), (True, False), ("bthd", "bhtd")):
+            BF16_EDGE_T, (64, 128), (True, False), ("bthd", "bhtd")):
         k1b_cases.append(check_flash_bf16(torch, gen, dev, 2, t, 2, d,
                                           causal, layout))
+    for (t, tk, causal), d in itertools.product(BF16_EDGE_TQ_TK, (64, 128)):
+        k1b_cases.append(check_flash_bf16(
+            torch, gen, dev, 2, t, 2, d, causal,
+            "bthd" if d == 64 else "bhtd", tk=tk))
     for causal, layout in ((True, "bthd"), (False, "bhtd")):
         k1b_cases.append(check_flash_bf16(torch, gen, dev, 3, 129, 2, 128,
                                           causal, layout,
                                           lengths=[0, 1, 129]))
+    for d, causal, layout in itertools.product(
+            (64, 128), (True, False), ("bthd", "bhtd")):
+        k1b_cases.append(check_flash_bf16(torch, gen, dev, 4, 193, 2, d,
+                                          causal, layout,
+                                          lengths=BF16_EDGE_LENGTHS))
+    for (b1, h1), d, causal, layout in itertools.product(
+            BF16_EDGE_BH, (64, 128), (True, False), ("bthd", "bhtd")):
+        k1b_cases.append(check_flash_bf16(torch, gen, dev, b1, 129, h1, d,
+                                          causal, layout))
+    k1b_cases.append(check_flash_bf16(torch, gen, dev, 1, 193, 2, 64, True,
+                                      "bthd", lengths=[65]))
     emit({"case": "K1-bf16 worst", "cases": len(k1b_cases),
           "err_ratio_max": max(r["err_ratio"] for r in k1b_cases),
           "max_abs_err": max(r["max_abs_err"] for r in k1b_cases),
-          "lse_max_abs_err": max(r["lse_max_abs_err"] for r in k1b_cases)})
+          "lse_max_abs_err": max(r["lse_max_abs_err"] for r in k1b_cases),
+          "bitwise_repeat": all(r["bitwise_repeat"] for r in k1b_cases)})
     bwdb = check_flash_bwd_bf16(torch, gen, dev, tb, tt, th, td, True,
                                 "bthd", time_it=True)
     bwdb_128 = check_flash_bwd_bf16(torch, gen, dev, 8, 1024, 8, 128, True,
@@ -1556,19 +1717,35 @@ def main(argv=None):
                                            True, "bhtd",
                                            lengths=[0, 77, 200]))
     for t, d, causal, layout in itertools.product(
-            (129, 1), (64, 128), (True, False), ("bthd", "bhtd")):
+            BF16_EDGE_T, (64, 128), (True, False), ("bthd", "bhtd")):
         bwdb_cases.append(check_flash_bwd_bf16(torch, gen, dev, 2, t, 2, d,
                                                causal, layout))
+    for (t, tk, causal), d in itertools.product(BF16_EDGE_TQ_TK, (64, 128)):
+        bwdb_cases.append(check_flash_bwd_bf16(
+            torch, gen, dev, 2, t, 2, d, causal,
+            "bthd" if d == 64 else "bhtd", tk=tk))
     bwdb_cases.append(check_flash_bwd_bf16(torch, gen, dev, 3, 129, 2, 64,
                                            True, "bthd", lengths=[0, 1, 129]))
     bwdb_cases.append(check_flash_bwd_bf16(torch, gen, dev, 3, 129, 2, 128,
                                            False, "bhtd",
                                            lengths=[0, 1, 129]))
+    for d, causal, layout in itertools.product(
+            (64, 128), (True, False), ("bthd", "bhtd")):
+        bwdb_cases.append(check_flash_bwd_bf16(torch, gen, dev, 4, 193, 2, d,
+                                               causal, layout,
+                                               lengths=BF16_EDGE_LENGTHS))
+    for (b1, h1), d, causal, layout in itertools.product(
+            BF16_EDGE_BH, (64, 128), (True, False), ("bthd", "bhtd")):
+        bwdb_cases.append(check_flash_bwd_bf16(torch, gen, dev, b1, 129, h1,
+                                               d, causal, layout))
+    bwdb_cases.append(check_flash_bwd_bf16(torch, gen, dev, 1, 193, 2, 128,
+                                           False, "bhtd", lengths=[65]))
     emit({"case": "K2/K4-bf16 worst", "cases": len(bwdb_cases),
           "err_ratio_max": max(v for r in bwdb_cases for key, v in r.items()
                                if key.endswith("_err_ratio")),
           "K2_max_abs_err": max(r["K2_max_abs_err"] for r in bwdb_cases),
-          "K4_max_abs_err": max(r["K4_max_abs_err"] for r in bwdb_cases)})
+          "K4_max_abs_err": max(r["K4_max_abs_err"] for r in bwdb_cases),
+          "K2_bitwise_repeat": all(r["bitwise_repeat"] for r in bwdb_cases)})
     # K1, K2 and K4 on the tensor cores, in TF32, and their twins in bf16:
     # a fact about the binaries
     from paddle_tpu_torch.kernels import library_path
@@ -1579,8 +1756,9 @@ def main(argv=None):
             ("flash_bwd", ("flash_bwd_dq", "flash_bwd_dkv"), "TF32"),
             ("flash_bwd_fused", ("flash_bwd_fused",), "TF32"),
             ("flash_fwd_bf16", ("flash_fwd_bf16",), "BF16"),
-            ("flash_bwd_bf16", ("flash_bwd_dq_bf16", "flash_bwd_dkv_bf16",
-                                "flash_bwd_fused_bf16"), "BF16")):
+            ("flash_bwd_bf16", ("flash_bwd_dq_bf16", "flash_bwd_dkv_bf16"),
+             "BF16"),
+            ("flash_bwd_fused_bf16", ("flash_bwd_fused_bf16",), "BF16")):
         sass.update(sass_report(library_path(lib), names, kind))
     emit({"case": "SASS", "kernels": sass})
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
@@ -1592,6 +1770,10 @@ def main(argv=None):
                 fail("%s<%d> has no %s tensor-core instruction in its "
                      "SASS: %s" % (name, d, "BF16" if "bf16" in name
                                    else "TF32", got))
+            # K1-bf16 and K2-bf16 run on wgmma, with nothing in local memory
+            if name in WGMMA_KERNELS and (not got["hgmma"] or got["local"]):
+                fail("%s<%d> must issue wgmma (HGMMA) and keep nothing in "
+                     "local memory: %s" % (name, d, got))
     # K3 at the slice's last-step lengths, with every slot full and with
     # every slot empty (all timed: the two first give its rate and what a
     # call costs beside the bytes, the last the cost of its grid alone),
@@ -1697,7 +1879,8 @@ def main(argv=None):
                "generate": sl["launches"]["K1"]},
               k1["max_abs_err"], k1["ms"], k1["plain_ms"],
               (k1["bound_ms"], k1["bound_by"]), k1["library_ms"],
-              fp32_bound_ms=k1["fp32_bound_ms"], sass=sass_of("flash_fwd"),
+              fp32_bound_ms=k1["fp32_bound_ms"], host_us=k1["host_us"],
+              sass=sass_of("flash_fwd"),
               **{"serving_" + key: k1_serve[key] for key in (
                   "shape", "ms", "plain_ms", "library_ms", "bound_ms",
                   "bound_by", "fp32_bound_ms")}),
@@ -1748,6 +1931,10 @@ def main(argv=None):
               k1b["max_abs_err"], k1b["ms"], k1b["plain_ms"],
               (k1b["bound_ms"], k1b["bound_by"]), k1b["library_ms"],
               plain_err=k1b["plain_err"], err_ratio=k1b["err_ratio"],
+              host_us=k1b["host_us"],
+              host_us_new_maps=k1b["host_us_new_maps"],
+              fp32_host_us=k1b["fp32_host_us"],
+              map_encode_us=k1b["map_encode_us"],
               sass=sass_of("flash_fwd_bf16"),
               **dh128(k1b_128, ("shape", "ms", "plain_ms", "library_ms",
                                 "bound_ms", "bound_by"))),
@@ -1770,7 +1957,7 @@ def main(argv=None):
                                   bwdb["K2_dv_err_ratio"]),
               sass=sass_of("flash_bwd_dkv_bf16"),
               **dh128(bwdb_128, ("dkv_ms", "dkv_bound_ms"))),
-        entry("flash_bwd_fused_bf16", csrc + "flash_bwd_bf16.cu",
+        entry("flash_bwd_fused_bf16", csrc + "flash_bwd_fused_bf16.cu",
               "paddle_tpu/ops/attention.py:282",
               {"train_amp_step_fused_bwd": ta["fused_bwd_launches"][
                   "K4-bf16"]},
@@ -1790,13 +1977,16 @@ def main(argv=None):
     emit({"k1_bhtd": {key: k1_bhtd[key] for key in (
         "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
         "fp32_bound_ms")},
-        "k2_pair": {"ms": bwd["pair_ms"], "plain_ms": bwd["plain_ms"],
+        "k2_pair": {"ms": bwd["pair_ms"], "host_us": bwd["pair_host_us"],
+                    "plain_ms": bwd["plain_ms"],
                     "library_ms": bwd["library_ms"],
                     "bound_ms": bwd["pair_bound_ms"],
                     "bound_by": bwd["pair_bound_by"],
                     "fp32_bound_ms": bwd["pair_fp32_bound_ms"]},
         "k2_bf16_pair": {key: res[key] for res, key in (
-            (bwdb, "pair_ms"), (bwdb, "plain_ms"), (bwdb, "library_ms"),
+            (bwdb, "pair_ms"), (bwdb, "pair_host_us"),
+            (bwdb, "pair_host_us_new_maps"), (bwdb, "fp32_pair_host_us"),
+            (bwdb, "map_encode_us"), (bwdb, "plain_ms"), (bwdb, "library_ms"),
             (bwdb, "pair_bound_ms"), (bwdb, "pair_bound_by"))},
         "k2_bf16_pair_dh128": {key: bwdb_128[key] for key in (
             "pair_ms", "plain_ms", "library_ms", "pair_bound_ms")}})

@@ -1,6 +1,6 @@
-// Device helpers of the bf16 attention kernels: K1-bf16 (flash_fwd_bf16.cu)
-// and K2-bf16 and K4-bf16 (flash_bwd_bf16.cu), the AMP twins of the fp32
-// kernels.
+// Device helpers of K4-bf16 (flash_bwd_fused_bf16.cu), the mma.sync bf16
+// attention kernel; the bf16 type and pack_bf16 serve the wgmma kernels
+// K1-bf16 and K2-bf16 (sm90.cuh) as well.
 //
 // The arithmetic. Every product is mma.sync.m16n8k16 with bf16 operands and
 // an fp32 accumulator (HMMA.16816.F32.BF16 on sm_90a): the products of two

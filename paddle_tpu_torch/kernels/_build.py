@@ -29,7 +29,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "paddle_tpu_torch")
 SOURCES = ("flash_fwd", "decode_attn", "flash_bwd", "flash_bwd_fused",
-           "flash_fwd_bf16", "flash_bwd_bf16")
+           "flash_fwd_bf16", "flash_bwd_bf16", "flash_bwd_fused_bf16")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

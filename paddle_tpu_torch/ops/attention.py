@@ -13,7 +13,8 @@ saves q, k, v, out and the per-row logsumexp, never the scores.
 
 The wrappers dispatch by dtype: fp32 tensors go to those kernels, bf16
 tensors (the op under bf16 AMP) to their bf16 twins, K1-bf16, K2-bf16 and
-K4-bf16 (csrc/flash_fwd_bf16.cu, csrc/flash_bwd_bf16.cu), which compute
+K4-bf16 (csrc/flash_fwd_bf16.cu and csrc/flash_bwd_bf16.cu on wgmma and
+TMA, csrc/flash_bwd_fused_bf16.cu on mma.sync), which compute
 what the same Pallas bodies compute on bf16 operands: the reference
 pre-scales q in bf16 (``q * jnp.asarray(scale, q.dtype)``) before its
 kernels, which take no scale, and the chain rule through that product
@@ -299,8 +300,8 @@ def _bwd_kernel(name, bf16=False):
     if (name, bf16) not in _BWD_FNS:
         from ..kernels import load
 
-        lib_name = ("flash_bwd_bf16" if bf16 else
-                    "flash_bwd_fused" if name == "fused" else "flash_bwd")
+        lib_name = (("flash_bwd_fused" if name == "fused" else "flash_bwd")
+                    + ("_bf16" if bf16 else ""))
         lib = load(lib_name)
         fn = getattr(lib, "flash_bwd_%s_%s" % (name, "bf16" if bf16
                                                else "f32"))

@@ -272,6 +272,23 @@ _BF16_WRAPPERS = ("flash_attention_fwd_bf16", "flash_attention_bwd_dq_bf16",
 ] + [
     (3, 129, 2, 128, True, "bthd", [0, 1, 129]),
     (3, 129, 2, 64, False, "bhtd", [0, 1, 129]),
+] + [
+    # T at the edges of the kernels' 64- and 128-row tiles
+    (2, t, 2, d, causal, layout, None) for t, d, causal, layout in
+    itertools.product((63, 64, 65, 127, 128, 191, 193), (64, 128),
+                      (True, False), ("bthd", "bhtd"))
+] + [
+    # KV lengths one key before and one after a 64- and a 128-key edge
+    (4, 193, 2, d, causal, "bthd" if causal else "bhtd", [63, 65, 127, 129])
+    for d, causal in itertools.product((64, 128), (True, False))
+] + [
+    # one batch or one head: a tensor map's axis of size 1
+    (b, 129, h, d, causal, layout, None) for (b, h), d, causal, layout in
+    itertools.product(((1, 3), (3, 1)), (64, 128), (True, False),
+                      ("bthd", "bhtd"))
+] + [
+    (1, 193, 2, 64, True, "bthd", [65]),
+    (1, 193, 1, 128, False, "bhtd", [129]),
 ])
 def test_bf16_flash_kernels_match_plain(card, b, t, h, d, causal, layout,
                                         lengths):
@@ -300,6 +317,32 @@ def test_bf16_flash_kernels_match_plain(card, b, t, h, d, causal, layout,
         if n == 0:
             assert bool((out[i] == 0).all())
             assert all(bool((gr[i] == 0).all()) for gr in split + fused)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, t, h, d, causal, layout, lengths", [
+    (2, 300, 4, 64, True, "bthd", None),
+    (2, 193, 2, 128, False, "bhtd", [193, 65]),
+    (3, 1024, 2, 64, True, "bhtd", None),
+])
+def test_bf16_kernels_repeat_bitwise(card, b, t, h, d, causal, layout,
+                                     lengths):
+    """K1-bf16 and K2-bf16 (dq, dk/dv) sum in a fixed order, without
+    atomics: two calls on the same inputs give the same bits."""
+    q, k, v, do, lens = _bf16_case(card, 7, b, t, h, d, causal, layout,
+                                   lengths)
+
+    def run():
+        out, lse = pt_attn.flash_attention_fwd(q, k, v, causal, None, lens,
+                                               layout)
+        delta = pt_attn.attention_delta(out, do, layout)
+        args = (q, k, v, lse, delta, do, causal, None, lens, layout)
+        return (out, lse, pt_attn.flash_attention_bwd_dq(*args)) + \
+            pt_attn.flash_attention_bwd_dkv(*args)
+
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
 
 
 def _bf16_step(q, k, v, do, causal, lens, layout):

@@ -391,10 +391,10 @@ def test_chip_smoke_counts_tensor_core_instructions_per_kernel():
     got = chip_smoke.parse_sass(sass, res_usage,
                                 ("flash_bwd_dq", "flash_bwd_dkv"))
     assert got == {
-        "flash_bwd_dq<64>": {"tc_instructions": 2, "regs": 162, "stack": 0,
-                             "local": 0},
-        "flash_bwd_dkv<128>": {"tc_instructions": 1, "regs": 238,
-                               "stack": 8, "local": 32},
+        "flash_bwd_dq<64>": {"tc_instructions": 2, "hgmma": 0, "hmma": 2,
+                             "regs": 162, "stack": 0, "local": 0},
+        "flash_bwd_dkv<128>": {"tc_instructions": 1, "hgmma": 1, "hmma": 0,
+                               "regs": 238, "stack": 8, "local": 32},
     }
     # the bf16 twins: bf16 HMMA counted, TF32 and fp16 ones not
     fwd64 = ("_ZN50_GLOBAL__N__ae332e6c_17_flash_fwd_bf16_cu_48fe48b521flash"
@@ -406,13 +406,16 @@ def test_chip_smoke_counts_tensor_core_instructions_per_kernel():
         "        /*0020*/  HMMA.16816.F32.BF16 R8, R16, R12, R8 ;",
         "        /*0030*/  HMMA.16816.F32 R8, R16, R12, R8 ;",
         "        /*0040*/  HMMA.1688.F32.TF32 R8, R16, R12, R8 ;",
+        "        /*0050*/  HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], R24 ;",
+        "        /*0060*/  HGMMA.64x64x16.F32.BF16 R24, R88, gdesc[UR8], R24 ;",
         "\t\tFunction : %s" % dq64,
         "        /*0010*/  HMMA.16816.F32.BF16 R8, R4, R12, R8 ;",
     ])
     res_bf16 = " Function %s:\n  REG:165 STACK:0 SHARED:0 LOCAL:0" % fwd64
     got = chip_smoke.parse_sass(sass_bf16, res_bf16, ("flash_fwd_bf16",),
                                 "BF16")
-    assert got == {"flash_fwd_bf16<64>": {"tc_instructions": 2, "regs": 165,
+    assert got == {"flash_fwd_bf16<64>": {"tc_instructions": 4, "hgmma": 2,
+                                          "hmma": 2, "regs": 165,
                                           "stack": 0, "local": 0}}
     # the bound: fp32-accurate products at the 3xTF32 tensor-core rate
     # (495 / 3 TFLOP/s) by default, at the CUDA cores' 67 on request
@@ -428,6 +431,41 @@ def test_chip_smoke_counts_tensor_core_instructions_per_kernel():
     f32 = chip_smoke.flash_work(2, 2, 64, 64, 64, True)
     b16 = chip_smoke.flash_work(2, 2, 64, 64, 64, True, itemsize=2)
     assert f32[0] == b16[0] and b16[1] == f32[1] / 2 + 2 * 2 * 2 * 64
+
+
+def _with_includes(path):
+    """A CUDA source's text and that of every header it includes with
+    quotes, from the same directory, recursively."""
+    with open(path) as f:
+        text = f.read()
+    for name in re.findall(r'#include "([^"]+)"', text):
+        text += _with_includes(os.path.join(os.path.dirname(path), name))
+    return text
+
+
+@pytest.mark.parametrize("source", ["flash_fwd_bf16", "flash_bwd_bf16"])
+def test_bf16_attention_kernels_are_written_for_hopper(source):
+    """K1-bf16 and K2-bf16 multiply by wgmma and copy tiles by TMA (tensor
+    maps encoded through the driver entry point, so the build links no
+    libcuda, and cached), under warp specialisation; not by mma.sync and
+    cp.async."""
+    path = os.path.join(ROOT, "paddle_tpu_torch", "csrc", source + ".cu")
+    with open(path) as f:
+        own = f.read()
+    text = _with_includes(path)
+    assert "wgmma.mma_async" in text and "cp.async.bulk.tensor" in text
+    assert "setmaxnreg" in text and "cuTensorMapEncodeTiled" in text
+    assert "cudaGetDriverEntryPoint" in text
+    assert re.search(r"\bwgmma_(ss|rs)<", own) and "tma_load_4d(" in own
+    assert "__grid_constant__ CUtensorMap" in own
+    assert "regs_alloc<" in own and "regs_dealloc<" in own
+    assert "mma_bf16(" not in own and "cp_async" not in own
+    # the host side asks the driver once: maps cached, attributes set once
+    assert "allow_smem(" in own and "cudaFuncSetAttribute(" not in own
+    assert "unordered_map<MapKey" in text
+    from paddle_tpu_torch.kernels import _build
+
+    assert source in _build.SOURCES and "-lcuda" not in _build.NVCC_FLAGS
 
 
 def test_chip_smoke_counts_every_port_kernel_as_attention():
