@@ -45,18 +45,25 @@ Each phase prints one JSON line:
    and a 128-key edge; one batch or one head, BF16_EDGE_BH): each, and
    its plain bf16 version, against fp32 attention on the same
    bf16-valued inputs (the kernel's error within BF16_ERR_RATIO of the
-   plain version's and BF16_ULPS bf16 ulps), and K1-bf16 and K2-bf16
-   called twice on the same inputs bitwise equal ("K1-bf16 worst" and
-   "K2/K4-bf16 worst" lines); timed on q pre-scaled as the op pre-scales
-   it (device time, and the wrapper's host time per call: host_us with
-   its tensor maps cached, host_us_new_maps with every map encoded anew,
-   fp32_host_us of the fp32 K1 or K2 in the same rounds, and from the
-   first two map_encode_us, the host time of one map), beside the bound
-   at the bf16 tensor-core rate (989 TFLOP/s) and bf16 bytes, and
-   scaled_dot_product_attention in bf16. The "SASS" line counts their
-   bf16 tensor-core instructions, HGMMA (wgmma) and HMMA (mma.sync)
-   apart: the run fails if one has none, and if K1-bf16 or K2-bf16 (the
-   wgmma kernels) has no HGMMA or any local memory.
+   plain version's and BF16_ULPS bf16 ulps), and K1-bf16, K2-bf16 and
+   K4-bf16's dk and dv called twice on the same inputs bitwise equal
+   ("K1-bf16 worst" and "K2/K4-bf16 worst" lines); timed on q pre-scaled
+   as the op pre-scales it (device time, and the wrapper's host time per
+   call: host_us with its tensor maps cached, host_us_new_maps with every
+   map encoded anew, fp32_host_us of the fp32 K1 or K2 in the same
+   rounds, and from the first two map_encode_us, the host time of one
+   map), beside the bound at the bf16 tensor-core rate (989 TFLOP/s) and
+   bf16 bytes, and scaled_dot_product_attention in bf16; K4-bf16's
+   beside the bytes of fp32 adds one call makes into dq, as the kernel
+   counts them (fused_dq_reduce_mb, on the kernels line too) and as its
+   tile walk computes them (fused_dq_reduce_mb_walk; the run fails if
+   they differ), and the time of its wrapper's zero fill and bf16 cast of
+   that buffer. The "SASS" line counts their bf16 tensor-core
+   instructions, HGMMA (wgmma) and HMMA (mma.sync) apart, and each
+   kernel's local-memory loads and stores (LDL, STL: spills; cuobjdump's
+   LOCAL does not count a spill to the stack): the run fails if one has
+   no tensor-core instruction, and if K1-bf16, K2-bf16 or K4-bf16 (the
+   wgmma kernels) has no HGMMA or any LOCAL memory.
 3. train: the flagship training config (bench.py's LM phase: vocab
    32768, 12 layers, d_model 1024, 16 heads, d_inner 4096, seq 1024,
    batch 16, Adam 1e-4), fp32, random weights from the port's own startup
@@ -81,7 +88,9 @@ Each phase prints one JSON line:
    (K4-bf16 once per layer, K2-bf16 never), (d) the O1 program, (e) the
    fp32 program; (a) and (c) against (b) relative to (b)'s distance from
    (e) (compare_amp: ratios printed, gates at the top of this file); one
-   profiled step (build/chip_smoke/train_amp_step_ops.txt).
+   profiled step (build/chip_smoke/train_amp_step_ops.txt), and one with
+   PADDLE_TPU_FLASH_FUSED_BWD=1 (profile_fused_bwd,
+   train_amp_fused_bwd_step_ops.txt).
 5. slice: the flagship serving config at full width (vocab 32768, 12
    layers, d_model 1024, 8 heads, d_inner 4096, max_len 2048), random
    weights from --seed. The export is written with save_decode_model,
@@ -103,6 +112,12 @@ line
 error, times and bound), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure exits non-zero before that.
 Scratch files go to build/chip_smoke/; the export is removed.
+
+``--k4-ablations`` runs none of that. It times K4-bf16's kernel at the
+two timed shapes with parts of its dq share left out (K4_ABLATIONS, one
+library each, built together), in turns over ``--rounds``, beside the
+whole kernel and K2-dkv-bf16, and prints one line per shape. The
+variants give a wrong dq: they are timed, not checked.
 """
 from __future__ import annotations
 
@@ -186,8 +201,14 @@ BF16_EDGE_TQ_TK = ((65, 193, False), (193, 63, True), (129, 191, True),
 BF16_EDGE_LENGTHS = [63, 65, 127, 129]
 # (B, H) with one batch or one head: a tensor map's axis of size 1
 BF16_EDGE_BH = ((1, 3), (3, 1))
+# K4-bf16 with a part of its dq share left out: the value of the
+# K4_BF16_OMIT macro (csrc/flash_bwd_kv_bf16.cuh) for each, 0 the whole
+# kernel (--k4-ablations)
+K4_ABLATIONS = {"kernel": 0, "no_reductions": 1, "half_reductions": 2,
+                "no_stage": 3, "no_dq_product": 4}
 # the kernels that run on wgmma (the SASS line's HGMMA count)
-WGMMA_KERNELS = ("flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16")
+WGMMA_KERNELS = ("flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16",
+                 "flash_bwd_fused_bf16")
 # The bf16 O2 training step with the kernels, (a), against the same step
 # with the plain bf16 attention, (b), relative to (b)'s distance from the
 # fp32 step, (e). Both are bf16 runs of one algorithm whose sums go in
@@ -329,8 +350,9 @@ def sass_report(lib_path, kernels, kind="TF32"):
     """Per instantiation of each kernel in ``kernels`` (function names) in
     the built library: its tensor-core instructions of type ``kind``
     (.TF32 or .BF16) from ``cuobjdump -sass``, in all and apart as HGMMA
-    (wgmma) and HMMA (mma.sync), and its registers, stack and local
-    memory from ``cuobjdump -res-usage``."""
+    (wgmma) and HMMA (mma.sync), its local-memory loads and stores (LDL,
+    STL: spills), and its registers, stack and local memory from
+    ``cuobjdump -res-usage``."""
     from paddle_tpu_torch.kernels import cuda_tool
 
     def dump(flag):
@@ -345,8 +367,8 @@ def sass_report(lib_path, kernels, kind="TF32"):
 
 def parse_sass(sass, res_usage, kernels, kind="TF32"):
     """See sass_report: {"<kernel><D>": {"tc_instructions", "hgmma",
-    "hmma", "regs", "stack", "local"}} for the template instantiations
-    (on the head dim) of the named kernels."""
+    "hmma", "ldl", "stl", "regs", "stack", "local"}} for the template
+    instantiations (on the head dim) of the named kernels."""
     import re
 
     def key(mangled):
@@ -362,11 +384,15 @@ def parse_sass(sass, res_usage, kernels, kind="TF32"):
         if m:
             cur = key(m.group(1))
             if cur:
-                out[cur] = {"tc_instructions": 0, "hgmma": 0, "hmma": 0}
+                out[cur] = {"tc_instructions": 0, "hgmma": 0, "hmma": 0,
+                            "ldl": 0, "stl": 0}
         elif cur:
             m = re.search(r"\b(HMMA|HGMMA)\.\S*%s" % kind, line)
             if m:
                 out[cur]["tc_instructions"] += 1
+                out[cur][m.group(1).lower()] += 1
+            m = re.search(r"\b(LDL|STL)\b", line)
+            if m:
                 out[cur][m.group(1).lower()] += 1
     cur = None
     for line in res_usage.splitlines():
@@ -410,6 +436,23 @@ def flash_bwd_work(b, h, t, tk, d, causal, lengths=None, products=5,
     out = {5: rows + 2 * keys, 3: rows, 4: 2 * keys}[products]
     nbytes = itemsize * (2 * rows + 2 * keys + out) + 4.0 * 2 * b * h * t
     return flops, nbytes
+
+
+def fused_dq_reduce_bytes(b, h, t, tk, d, causal, lengths=None):
+    """Bytes of fp32 adds that K4-bf16 makes into dq on these inputs, as
+    its walk makes them: each 128-key tile that some query sees adds, for
+    every q tile (64 rows at Dh 64, 32 at Dh 128) from the first that
+    sees its keys, Dh fp32 values for each of the tile's rows before
+    Tq."""
+    bq = 64 if d == 64 else 32
+    kv = [tk] * b if lengths is None else [max(0, min(int(n), tk))
+                                           for n in lengths]
+    rows = 0
+    for n in kv:
+        for r0 in range(0, tk, 128):
+            if r0 < n and (not causal or r0 < t):
+                rows += t - (r0 // bq * bq if causal else 0)
+    return 4.0 * d * h * rows
 
 
 def decode_work(b, h, d, lengths):
@@ -705,8 +748,9 @@ def check_flash_bwd_bf16(torch, gen, dev, b, t, h, d, causal, layout,
     same bf16 q, k, v, dO and K1-bf16's out and lse, each gradient against
     the fp32 backward of fp32 attention on the same bf16-valued inputs
     (bf16_gate); K2-bf16 called twice on the same inputs gives the same
-    bits. K4's dq sums with atomics, in an order that changes from run to
-    run. ``tk`` keys (Tq if None)."""
+    bits, and so do K4-bf16's dk and dv (register sums per block); its dq
+    is added across blocks in an order that changes from run to run.
+    ``tk`` keys (Tq if None)."""
     from paddle_tpu_torch.ops import attention as A
 
     shape, kshape = _shapes(b, t, h, d, layout, tk)
@@ -723,6 +767,7 @@ def check_flash_bwd_bf16(torch, gen, dev, b, t, h, d, causal, layout,
     again = (A.flash_attention_bwd_dq(*args),) + A.flash_attention_bwd_dkv(
         *args)
     fused = A.flash_attention_bwd_fused(*args)
+    fused_again = A.flash_attention_bwd_fused(*args)
     plain = A.flash_attention_bwd_plain(q, k, v, out, lse, do, causal, None,
                                         lens, layout)
     f32 = [x.float() for x in (q, k, v, do)]
@@ -736,9 +781,15 @@ def check_flash_bwd_bf16(torch, gen, dev, b, t, h, d, causal, layout,
     bitwise = all(bool(torch.equal(x, y)) for x, y in zip(split, again))
     if not bitwise:
         fail("K2-bf16: two calls on the same inputs differ at %s" % where)
+    bitwise_dkv = all(bool(torch.equal(x, y))
+                      for x, y in zip(fused[1:], fused_again[1:]))
+    if not bitwise_dkv:
+        fail("K4-bf16: dk or dv differs between two calls on the same "
+             "inputs at %s" % where)
     res = {"case": "K2/K4-bf16", "shape": list(shape), "keys": kshape[
         1 if layout == "bthd" else 2], "layout": layout, "causal": causal,
-           "lengths": lengths, "bitwise_repeat": bitwise}
+           "lengths": lengths, "bitwise_repeat": bitwise,
+           "K4_dkv_bitwise_repeat": bitwise_dkv}
     worst = {"K2": 0.0, "K4": 0.0}
     for key, got in (("K2", split), ("K4", fused)):
         for name, g, p, r in zip(("dq", "dk", "dv"), got, plain, ref):
@@ -790,6 +841,22 @@ def check_flash_bwd_bf16(torch, gen, dev, b, t, h, d, causal, layout,
         res["map_encode_us"] = (hu["new_maps"] - hu["cached"]) / 10
         res["fused_ms"] = time_ms(
             lambda: A.flash_attention_bwd_fused_bf16(*sargs))
+        # what K4-bf16's wrapper does besides the kernel: the zero fill of
+        # the fp32 dq that the kernel adds into, and its cast to bf16
+        res["fused_zero_cast_ms"] = time_ms(lambda: torch.zeros(
+            qs.shape, dtype=torch.float32, device=dev).to(torch.bfloat16))
+        # the bytes of fp32 adds one call makes into dq: as the kernel
+        # counts them, and as its tile walk computes them
+        A.take_fused_bf16_dq_bytes(dev)
+        A.flash_attention_bwd_fused_bf16(*sargs)
+        res["fused_dq_reduce_mb"] = A.take_fused_bf16_dq_bytes(dev) / 1e6
+        res["fused_dq_reduce_mb_walk"] = fused_dq_reduce_bytes(
+            b, h, t, kshape[1 if layout == "bthd" else 2], d, causal,
+            lengths) / 1e6
+        if res["fused_dq_reduce_mb"] != res["fused_dq_reduce_mb_walk"]:
+            fail("K4-bf16 added %r MB into dq at %s; its tile walk adds %r"
+                 % (res["fused_dq_reduce_mb"], where,
+                    res["fused_dq_reduce_mb_walk"]))
         res["plain_ms"] = time_ms(
             lambda: A.flash_attention_bwd_plain_bf16(*sargs))
         qt, kt, vt = (x.transpose(1, 2) if layout == "bthd" else x
@@ -1571,6 +1638,13 @@ def run_train_amp(config, batch, seq, lr, warm, steps, seed, place,
         res["profile"] = profile_call(
             lambda: exe.run(main, feed, [loss], scope=scope),
             os.path.join(workdir, "train_amp_step_ops.txt"))
+        # step (c), the single-pass backward, profiled the same way
+        for name, val in saved.items():
+            scope.set_var(name, val)
+        with env_set("PADDLE_TPU_FLASH_FUSED_BWD", "1"):
+            res["profile_fused_bwd"] = profile_call(
+                lambda: exe.run(main, feed, [loss], scope=scope),
+                os.path.join(workdir, "train_amp_fused_bwd_step_ops.txt"))
     return res
 
 
@@ -1588,9 +1662,53 @@ def _smi_line():
     return r.stdout.strip().splitlines()[0]
 
 
+def run_k4_ablations(torch, dev, seed, rounds):
+    """--k4-ablations: K4-bf16's kernel (its launch alone, into one fp32
+    dq buffer) with each part of K4_ABLATIONS left out, and K2-dkv-bf16,
+    timed in turns at the two timed shapes (causal, BTHD); one line per
+    shape, every round's time of each."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from paddle_tpu_torch.kernels import build_all
+    from paddle_tpu_torch.ops import attention as A
+
+    variants = {name: ("K4_BF16_OMIT=%d" % n,) if n else ()
+                for name, n in K4_ABLATIONS.items()}
+    with ThreadPoolExecutor(len(variants)) as pool:
+        list(pool.map(lambda defs: build_all(["flash_bwd_fused_bf16"], defs),
+                      variants.values()))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    times = {}
+    for b, t, h, d in ((TRAIN_BATCH, TRAIN_SEQ, 16, 64), (8, 1024, 8, 128)):
+        q, k, v, do = _bf16_inputs(torch, gen, dev, (b, t, h, d), 4)
+        out, lse = A.flash_attention_fwd(q, k, v, True, None, None, "bthd")
+        delta = A.attention_delta(out, do, "bthd")
+        qs = A.prescale_q(q, 1.0 / math.sqrt(d))
+        sargs = (qs, k, v, lse, delta, do, True, None, "bthd")
+        grads = (torch.zeros(qs.shape, dtype=torch.float32, device=dev),
+                 torch.empty_like(k), torch.empty_like(v))
+        fns = {name: functools.partial(
+            A._launch_bwd, "fused", qs, k, v, lse, delta, do, grads, True,
+            None, None, "bthd", defs) for name, defs in variants.items()}
+        fns["k2_dkv"] = functools.partial(A.flash_attention_bwd_dkv_bf16,
+                                          *sargs)
+        times[b, t, h, d] = {name: [] for name in fns}
+        for _ in range(rounds):
+            for name, fn in fns.items():
+                times[b, t, h, d][name].append(time_ms(fn))
+    for shape in times:
+        emit({"case": "K4-bf16 ablations", "shape": list(shape),
+              "layout": "bthd", "causal": True, "ms": times[shape]})
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--k4-ablations", action="store_true",
+                    help="time K4-bf16 with parts left out, and nothing else")
+    ap.add_argument("--rounds", type=int, default=3,
+                    help="--k4-ablations: turns over the variants")
     args = ap.parse_args(argv)
 
     import torch
@@ -1609,6 +1727,8 @@ def main(argv=None):
     dev = torch.device("cuda", 0)
     smi = _smi_line()
     print(smi, flush=True)
+    if args.k4_ablations:
+        return run_k4_ablations(torch, dev, args.seed, args.rounds)
     t0 = time.perf_counter()
     built = build_all()
     emit({"phase": "device", "nvidia_smi": smi,
@@ -1745,7 +1865,9 @@ def main(argv=None):
                                if key.endswith("_err_ratio")),
           "K2_max_abs_err": max(r["K2_max_abs_err"] for r in bwdb_cases),
           "K4_max_abs_err": max(r["K4_max_abs_err"] for r in bwdb_cases),
-          "K2_bitwise_repeat": all(r["bitwise_repeat"] for r in bwdb_cases)})
+          "K2_bitwise_repeat": all(r["bitwise_repeat"] for r in bwdb_cases),
+          "K4_dkv_bitwise_repeat": all(r["K4_dkv_bitwise_repeat"]
+                                       for r in bwdb_cases)})
     # K1, K2 and K4 on the tensor cores, in TF32, and their twins in bf16:
     # a fact about the binaries
     from paddle_tpu_torch.kernels import library_path
@@ -1770,7 +1892,8 @@ def main(argv=None):
                 fail("%s<%d> has no %s tensor-core instruction in its "
                      "SASS: %s" % (name, d, "BF16" if "bf16" in name
                                    else "TF32", got))
-            # K1-bf16 and K2-bf16 run on wgmma, with nothing in local memory
+            # K1-bf16, K2-bf16 and K4-bf16 run on wgmma, with nothing in
+            # local memory
             if name in WGMMA_KERNELS and (not got["hgmma"] or got["local"]):
                 fail("%s<%d> must issue wgmma (HGMMA) and keep nothing in "
                      "local memory: %s" % (name, d, got))
@@ -1967,8 +2090,11 @@ def main(argv=None):
               err_ratio=max(bwdb["K4_%s_err_ratio" % n]
                             for n in ("dq", "dk", "dv")),
               sass=sass_of("flash_bwd_fused_bf16"),
+              zero_cast_ms=bwdb["fused_zero_cast_ms"],
+              dq_reduce_mb=bwdb["fused_dq_reduce_mb"],
               **dh128(bwdb_128, ("fused_ms", "pair_bound_ms", "plain_ms",
-                                 "library_ms"))),
+                                 "library_ms", "fused_zero_cast_ms",
+                                 "fused_dq_reduce_mb"))),
     ]
     for k in kernels:
         if not k["launches"]:

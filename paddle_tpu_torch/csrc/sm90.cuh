@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the bf16 attention kernels K1-bf16
-// (flash_fwd_bf16.cu) and K2-bf16 (flash_bwd_bf16.cu): mbarriers, TMA
-// tile copies, warpgroup matrix multiplies (wgmma) and their shared-memory
-// descriptors, register hand-over between warpgroups (setmaxnreg), and the
-// host side's tensor maps.
+// (flash_fwd_bf16.cu), K2-bf16 (flash_bwd_bf16.cu) and K4-bf16
+// (flash_bwd_fused_bf16.cu): the bf16 type, mbarriers, TMA tile copies and
+// reductions, warpgroup matrix multiplies (wgmma) and their shared-memory
+// descriptors, stmatrix, register hand-over between warpgroups
+// (setmaxnreg), and the host side's tensor maps.
 //
 // The tiles. Every bf16 tile in shared memory is one or more "boxes" of
 // rows x 64 values: 128-byte rows, the 16-byte chunks of row r stored at
@@ -17,7 +18,8 @@
 //   apart (SBO), the next 64 of N the next box (LBO = the box's bytes); a
 //   16-deep step is +2048 bytes.
 // So a row-major tile of K, V, Q or dO is read as it lies, as B^T or as
-// B, and no tile is ever transposed.
+// B, and no tile is ever transposed. A may be read N-major too ("MN-major",
+// the transpose bit of A; wgmma_ss_ta_n32), with the same offsets.
 //
 // The fragments (one warpgroup, 128 threads; warp w, lane l, g = l / 4,
 // c = l % 4). An m64nN accumulator holds d[4j + 2i + e] = element (16w + g
@@ -29,6 +31,7 @@
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -39,11 +42,18 @@
 #include <utility>
 #include <vector>
 
-#include "bf16_mma.cuh"  // bf16, pack_bf16
-
 namespace {
 
+typedef __nv_bfloat16 bf16;
+
 constexpr float LOG2E = 1.4426950408889634f;
+
+// two fp32 values rounded to nearest even (cvt.rn.bf16x2.f32) and packed:
+// lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&x);
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -134,6 +144,64 @@ __device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// ---- TMA reductions: one thread adds a box of shared memory into global
+// memory (elements past the map's ends are left out); each thread tracks
+// its own bulk groups. ``pred`` 0 makes each a no-op, without a branch.
+
+__device__ __forceinline__ void tma_reduce_add_4d(int pred, const void* src,
+                                                  const CUtensorMap* map,
+                                                  int c0, int c1, int c2,
+                                                  int c3) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %0, 0;\n"
+      "@p cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.bulk_group"
+      " [%1, {%3, %4, %5, %6}], [%2];\n}\n" ::"r"(pred),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit(int pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %0, 0;\n"
+      "@p cp.async.bulk.commit_group;\n}\n" ::"r"(pred)
+      : "memory");
+}
+
+// until this thread's bulk groups have read their shared memory
+__device__ __forceinline__ void bulk_wait_read(int pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %0, 0;\n"
+      "@p cp.async.bulk.wait_group.read 0;\n}\n" ::"r"(pred)
+      : "memory");
+}
+
+// until this thread's bulk groups have completed
+__device__ __forceinline__ void bulk_wait(int pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %0, 0;\n"
+      "@p cp.async.bulk.wait_group 0;\n}\n" ::"r"(pred)
+      : "memory");
+}
+
+// makes this thread's shared-memory stores visible to the async proxy
+// (wgmma operands, TMA sources) once a barrier has ordered them
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// four 8 x 8 bf16 matrices, each held as an accumulator's fragment (thread
+// l: row l / 4, columns 2 (l % 4) and + 1, one bf16 pair a register),
+// stored transposed: lane l gives the address of stored row l % 8 (the
+// matrix's column) of matrix l / 8
+__device__ __forceinline__ void stmatrix_x4_trans(void* p,
+                                                  const uint32_t (&r)[4]) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};"
+      ::"r"(smem_u32(p)), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+      : "memory");
+}
+
 // ---- named barriers (id 0 is __syncthreads'): ``n`` threads meet
 
 __device__ __forceinline__ void named_sync(int id, int n) {
@@ -213,6 +281,21 @@ __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
       "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (+)= A B, A (64 x 16) N-major ("MN-major": rows are the depth, through
+// the transpose bit of A) and B (16 x 32) K-major, both in shared memory;
+// scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_ta_n32(float (&d)[16], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 1, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(da), "l"(db), "r"(scale_d));
@@ -477,11 +560,13 @@ inline int tensor_map(CUtensorMap* map, const char* what, const MapKey& key) {
 // A bf16 head tensor (``what`` names it) as a 4-D map over (Dh, H, T, B),
 // its (batch, time, head) element strides as given (the head dim
 // contiguous), read in boxes of 64 values x 1 head x ``rows`` rows x 1
-// batch, 128-byte swizzled; reads past T fill zeros. Returns 0 or a
-// MAP_ERROR code.
+// batch, 128-byte swizzled; reads past T fill zeros. With ``fp32`` the
+// tensor holds fp32 values, in boxes of 32 (128 bytes a row, as well).
+// Returns 0 or a MAP_ERROR code.
 inline int head_map(CUtensorMap* map, const char* what, const void* base,
                     int D, int H, int T, int B, const long long* st,
-                    int rows) {
+                    int rows, bool fp32 = false) {
+  const int size = fp32 ? 4 : 2;
   MapKey key{};
   key.base = base;
   key.dims[0] = static_cast<cuuint64_t>(D);
@@ -489,15 +574,16 @@ inline int head_map(CUtensorMap* map, const char* what, const void* base,
   key.dims[2] = static_cast<cuuint64_t>(T);
   key.dims[3] = static_cast<cuuint64_t>(B);
   // a stride of an axis of size 1 is never used: any valid one will do
-  key.strides[0] = H > 1 ? static_cast<cuuint64_t>(st[2]) * 2 : 16;
-  key.strides[1] = T > 1 ? static_cast<cuuint64_t>(st[1]) * 2 : 16;
-  key.strides[2] = B > 1 ? static_cast<cuuint64_t>(st[0]) * 2 : 16;
-  key.box[0] = 64;
+  key.strides[0] = H > 1 ? static_cast<cuuint64_t>(st[2]) * size : 16;
+  key.strides[1] = T > 1 ? static_cast<cuuint64_t>(st[1]) * size : 16;
+  key.strides[2] = B > 1 ? static_cast<cuuint64_t>(st[0]) * size : 16;
+  key.box[0] = 128 / size;
   key.box[1] = 1;
   key.box[2] = static_cast<cuuint32_t>(rows);
   key.box[3] = 1;
   key.rank = 4;
-  key.type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  key.type = fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                  : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   key.swizzle = CU_TENSOR_MAP_SWIZZLE_128B;
   key.l2 = CU_TENSOR_MAP_L2_PROMOTION_L2_128B;
   return tensor_map(map, what, key);

@@ -13,8 +13,8 @@ saves q, k, v, out and the per-row logsumexp, never the scores.
 
 The wrappers dispatch by dtype: fp32 tensors go to those kernels, bf16
 tensors (the op under bf16 AMP) to their bf16 twins, K1-bf16, K2-bf16 and
-K4-bf16 (csrc/flash_fwd_bf16.cu and csrc/flash_bwd_bf16.cu on wgmma and
-TMA, csrc/flash_bwd_fused_bf16.cu on mma.sync), which compute
+K4-bf16 (csrc/flash_fwd_bf16.cu, csrc/flash_bwd_bf16.cu and
+csrc/flash_bwd_fused_bf16.cu, on wgmma and TMA), which compute
 what the same Pallas bodies compute on bf16 operands: the reference
 pre-scales q in bf16 (``q * jnp.asarray(scale, q.dtype)``) before its
 kernels, which take no scale, and the chain rule through that product
@@ -292,17 +292,17 @@ flash_attention_fwd.launches = 0
 flash_attention_fwd_bf16.launches = 0
 
 
-def _bwd_kernel(name, bf16=False):
+def _bwd_kernel(name, bf16=False, defines=()):
     """A backward kernel's C entry point (``flash_bwd_dq_f32``,
     ``flash_bwd_dkv_f32``, ``flash_bwd_fused_f32`` or their ``_bf16``
     twins) and its library's error-string function, built and bound on
-    first use."""
-    if (name, bf16) not in _BWD_FNS:
+    first use (with the macros ``defines`` set: a variant)."""
+    if (name, bf16, defines) not in _BWD_FNS:
         from ..kernels import load
 
         lib_name = (("flash_bwd_fused" if name == "fused" else "flash_bwd")
                     + ("_bf16" if bf16 else ""))
-        lib = load(lib_name)
+        lib = load(lib_name, defines)
         fn = getattr(lib, "flash_bwd_%s_%s" % (name, "bf16" if bf16
                                                else "f32"))
         n_out = {"dq": 1, "dkv": 2, "fused": 3}[name]
@@ -311,8 +311,23 @@ def _bwd_kernel(name, bf16=False):
                        + ([] if bf16 else [ctypes.c_float])
                        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _BWD_FNS[name, bf16] = (fn, _bind_error(lib, lib_name))
-    return _BWD_FNS[name, bf16]
+        _BWD_FNS[name, bf16, defines] = (fn, _bind_error(lib, lib_name))
+    return _BWD_FNS[name, bf16, defines]
+
+
+def take_fused_bf16_dq_bytes(device) -> int:
+    """The bytes of fp32 adds that K4-bf16 made into dq on the CUDA
+    ``device`` since they were last taken, counted by the kernel; the
+    count starts again at 0. Waits for the device."""
+    from ..kernels import load
+
+    lib = load("flash_bwd_fused_bf16")
+    out = ctypes.c_ulonglong(0)
+    err = lib.flash_bwd_fused_bf16_take_dq_bytes(
+        ctypes.c_int(torch.device(device).index or 0), ctypes.byref(out))
+    if err:
+        raise RuntimeError("K4-bf16's dq byte count: CUDA error %d" % err)
+    return out.value
 
 
 def _fused_bwd_enabled() -> bool:
@@ -445,10 +460,11 @@ def _check_bwd_inputs(q, k, v, lse, delta, do, lengths, layout):
 
 
 def _launch_bwd(name, q, k, v, lse, delta, do, outs, causal, scale,
-                lengths, layout):
+                lengths, layout, defines=()):
     """Validate, then launch one backward kernel into ``outs`` (dq; dk, dv;
     or dq, dk, dv): fp32 with ``scale``, or its bf16 twin on the
-    pre-scaled q (``scale`` unused)."""
+    pre-scaled q (``scale`` unused); ``defines`` picks a variant's
+    library."""
     b, h, t, tk, d = _check_bwd_inputs(q, k, v, lse, delta, do, lengths,
                                        layout)
     bf16 = q.dtype == _BF16
@@ -460,7 +476,7 @@ def _launch_bwd(name, q, k, v, lse, delta, do, outs, causal, scale,
              (q,) + tuple(outs) if name == "dkv" else tuple(outs))
     strides = (ctypes.c_longlong * 21)(
         *(st for x in (q, k, v, do) + grads for st in _bth_strides(x, layout)))
-    fn, err_str = _bwd_kernel(name, bf16)
+    fn, err_str = _bwd_kernel(name, bf16, tuple(defines))
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(),
              *(x.data_ptr() for x in outs),
@@ -580,8 +596,9 @@ def flash_attention_bwd_fused_bf16(qs, k, v, lse, delta, do, causal=False,
                                    ) -> Tuple[torch.Tensor, ...]:
     """(dqs, dk, dv) in one pass from the pre-scaled bf16 ``qs``. CPU
     tensors run the plain version; CUDA tensors launch K4-bf16 or raise.
-    dqs is summed in a zeroed fp32 buffer with atomics (not bitwise
-    reproducible) and rounded to bf16 once."""
+    dqs is summed in a zeroed fp32 buffer by TMA reductions from every
+    128-key tile (in an order that changes: not bitwise reproducible) and
+    rounded to bf16 once; dk and dv repeat bitwise."""
     if qs.device.type == "cpu":
         return flash_attention_bwd_plain_bf16(qs, k, v, lse, delta, do,
                                               causal, lengths, layout)

@@ -9,7 +9,8 @@ nor the JAX package, so it runs where only torch is installed:
 Tolerance: 1e-4 abs at unit-scale inputs (fp32 sums in another order;
 the products of K1, K2 and K4 in 3xTF32 on the tensor cores); for the
 gradients, 1e-4 of each one's largest element (at least 1): they grow
-with T, and K4 adds dq with atomics in an order that changes. The bf16
+with T, and K4 adds dq with atomics in an order that changes (K4-bf16
+with TMA reductions, in an order that changes too). The bf16
 kernels and their plain bf16 versions round at the same points, so both
 are held to fp32 attention on the same bf16-valued inputs: the kernel's
 error at most twice the plain version's and at most 8 bf16 ulps of the
@@ -328,7 +329,9 @@ def test_bf16_flash_kernels_match_plain(card, b, t, h, d, causal, layout,
 def test_bf16_kernels_repeat_bitwise(card, b, t, h, d, causal, layout,
                                      lengths):
     """K1-bf16 and K2-bf16 (dq, dk/dv) sum in a fixed order, without
-    atomics: two calls on the same inputs give the same bits."""
+    atomics, and K4-bf16 sums dk and dv in registers per block: two calls
+    on the same inputs give the same bits (K4-bf16's dq is added across
+    blocks in an order that changes)."""
     q, k, v, do, lens = _bf16_case(card, 7, b, t, h, d, causal, layout,
                                    lengths)
 
@@ -338,7 +341,8 @@ def test_bf16_kernels_repeat_bitwise(card, b, t, h, d, causal, layout,
         delta = pt_attn.attention_delta(out, do, layout)
         args = (q, k, v, lse, delta, do, causal, None, lens, layout)
         return (out, lse, pt_attn.flash_attention_bwd_dq(*args)) + \
-            pt_attn.flash_attention_bwd_dkv(*args)
+            pt_attn.flash_attention_bwd_dkv(*args) + \
+            pt_attn.flash_attention_bwd_fused(*args)[1:]
 
     first, second = run(), run()
     torch.cuda.synchronize()

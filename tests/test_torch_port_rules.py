@@ -377,7 +377,11 @@ def test_chip_smoke_counts_tensor_core_instructions_per_kernel():
         "\t\tFunction : %s" % dkv128,
         "        /*0010*/  HGMMA.64x64x8.F32.TF32 R24, gdesc[UR4], R24 ;",
         "        /*0020*/  FADD R1, R2, R3 ;",
+        "        /*0030*/  STL.64 [R1+0x8], R24 ;",
+        "        /*0040*/  LDL.64 R24, [R1+0x8] ;",
+        "        /*0050*/  LDL R26, [R1+0x10] ;",
         "\t\tFunction : %s" % other,
+        "        /*0010*/  STL [R1], R2 ;",
         "        /*0010*/  HMMA.1688.F32.TF32 R8, R4, R12, R8 ;",
     ])
     res_usage = "\n".join([
@@ -392,9 +396,11 @@ def test_chip_smoke_counts_tensor_core_instructions_per_kernel():
                                 ("flash_bwd_dq", "flash_bwd_dkv"))
     assert got == {
         "flash_bwd_dq<64>": {"tc_instructions": 2, "hgmma": 0, "hmma": 2,
-                             "regs": 162, "stack": 0, "local": 0},
+                             "ldl": 0, "stl": 0, "regs": 162, "stack": 0,
+                             "local": 0},
         "flash_bwd_dkv<128>": {"tc_instructions": 1, "hgmma": 1, "hmma": 0,
-                               "regs": 238, "stack": 8, "local": 32},
+                               "ldl": 2, "stl": 1, "regs": 238, "stack": 8,
+                               "local": 32},
     }
     # the bf16 twins: bf16 HMMA counted, TF32 and fp16 ones not
     fwd64 = ("_ZN50_GLOBAL__N__ae332e6c_17_flash_fwd_bf16_cu_48fe48b521flash"
@@ -415,8 +421,9 @@ def test_chip_smoke_counts_tensor_core_instructions_per_kernel():
     got = chip_smoke.parse_sass(sass_bf16, res_bf16, ("flash_fwd_bf16",),
                                 "BF16")
     assert got == {"flash_fwd_bf16<64>": {"tc_instructions": 4, "hgmma": 2,
-                                          "hmma": 2, "regs": 165,
-                                          "stack": 0, "local": 0}}
+                                          "hmma": 2, "ldl": 0, "stl": 0,
+                                          "regs": 165, "stack": 0,
+                                          "local": 0}}
     # the bound: fp32-accurate products at the 3xTF32 tensor-core rate
     # (495 / 3 TFLOP/s) by default, at the CUDA cores' 67 on request
     ms, by = chip_smoke.bound(495e9, 1e6)
@@ -431,28 +438,52 @@ def test_chip_smoke_counts_tensor_core_instructions_per_kernel():
     f32 = chip_smoke.flash_work(2, 2, 64, 64, 64, True)
     b16 = chip_smoke.flash_work(2, 2, 64, 64, 64, True, itemsize=2)
     assert f32[0] == b16[0] and b16[1] == f32[1] / 2 + 2 * 2 * 2 * 64
+    # K4-bf16's fp32 adds into dq: at the causal training shape each
+    # (b, h) adds 4608 rows of Dh values (128-key tiles from the diagonal
+    # on), 4.5x the fp32 dq buffer; a length-0 batch adds nothing
+    assert chip_smoke.fused_dq_reduce_bytes(16, 16, 1024, 1024, 64,
+                                            True) == 4 * 64 * 4608 * 256
+    assert chip_smoke.fused_dq_reduce_bytes(8, 8, 1024, 1024, 128,
+                                            True) == 4 * 128 * 4608 * 64
+    assert chip_smoke.fused_dq_reduce_bytes(2, 1, 200, 200, 128, False,
+                                            [0, 129]) == 4 * 128 * 200 * 2
+    # --k4-ablations: each part it leaves out is one the kernel's body
+    # knows by its K4_BF16_OMIT value
+    with open(os.path.join(ROOT, "paddle_tpu_torch", "csrc",
+                           "flash_bwd_kv_bf16.cuh")) as f:
+        body = f.read()
+    omit = set(int(n) for n in re.findall(r"K4_BF16_OMIT (?:==|>=) (\d)",
+                                          body))
+    assert sorted(chip_smoke.K4_ABLATIONS.values()) == [0] + sorted(omit)
 
 
-def _with_includes(path):
+def _with_includes(path, skip=()):
     """A CUDA source's text and that of every header it includes with
-    quotes, from the same directory, recursively."""
+    quotes, from the same directory, recursively; headers named in
+    ``skip`` left out."""
     with open(path) as f:
         text = f.read()
     for name in re.findall(r'#include "([^"]+)"', text):
-        text += _with_includes(os.path.join(os.path.dirname(path), name))
+        if name not in skip:
+            text += _with_includes(os.path.join(os.path.dirname(path), name),
+                                   skip)
     return text
 
 
-@pytest.mark.parametrize("source", ["flash_fwd_bf16", "flash_bwd_bf16"])
+@pytest.mark.parametrize("source", ["flash_fwd_bf16", "flash_bwd_bf16",
+                                    "flash_bwd_fused_bf16"])
 def test_bf16_attention_kernels_are_written_for_hopper(source):
-    """K1-bf16 and K2-bf16 multiply by wgmma and copy tiles by TMA (tensor
-    maps encoded through the driver entry point, so the build links no
-    libcuda, and cached), under warp specialisation; not by mma.sync and
-    cp.async."""
-    path = os.path.join(ROOT, "paddle_tpu_torch", "csrc", source + ".cu")
-    with open(path) as f:
-        own = f.read()
+    """K1-bf16, K2-bf16 and K4-bf16 multiply by wgmma and copy tiles by TMA
+    (tensor maps encoded through the driver entry point, so the build
+    links no libcuda, and cached), under warp specialisation; not by
+    mma.sync and cp.async. A kernel's own code is its source and the
+    kernel headers it includes (K2-bf16 and K4-bf16 share their KV-outer
+    body, flash_bwd_kv_bf16.cuh), not sm90.cuh's building blocks. K4-bf16
+    adds dq by TMA reductions, not by 8-byte atomics."""
+    csrc = os.path.join(ROOT, "paddle_tpu_torch", "csrc")
+    path = os.path.join(csrc, source + ".cu")
     text = _with_includes(path)
+    own = _with_includes(path, skip=("sm90.cuh",))
     assert "wgmma.mma_async" in text and "cp.async.bulk.tensor" in text
     assert "setmaxnreg" in text and "cuTensorMapEncodeTiled" in text
     assert "cudaGetDriverEntryPoint" in text
@@ -463,6 +494,13 @@ def test_bf16_attention_kernels_are_written_for_hopper(source):
     # the host side asks the driver once: maps cached, attributes set once
     assert "allow_smem(" in own and "cudaFuncSetAttribute(" not in own
     assert "unordered_map<MapKey" in text
+    assert "atomicAdd(reinterpret_cast<float2*>" not in own
+    if source != "flash_fwd_bf16":
+        assert '#include "flash_bwd_kv_bf16.cuh"' in own
+    if source == "flash_bwd_fused_bf16":
+        assert "tma_reduce_add_4d(" in own and "stmatrix_x4_trans(" in own
+        assert "cp.reduce.async.bulk.tensor" in text
+    assert not os.path.exists(os.path.join(csrc, "bf16_mma.cuh"))
     from paddle_tpu_torch.kernels import _build
 
     assert source in _build.SOURCES and "-lcuda" not in _build.NVCC_FLAGS
