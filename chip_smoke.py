@@ -94,17 +94,42 @@ Each phase prints one JSON line:
 5. slice: the flagship serving config at full width (vocab 32768, 12
    layers, d_model 1024, 8 heads, d_inner 4096, max_len 2048), random
    weights from --seed. The export is written with save_decode_model,
-   loaded with DecodePredictor and asked for 8 prompts x 64 new tokens.
-   The launch counts must show K1 once per layer per prefill and K3 once
-   per layer per decode step. The generated tokens are then checked
-   teacher-forced: they are fed through the same steps again, once with
-   the kernels and once with the plain attention, and the logits of every
-   step must agree within a stated tolerance. Last, one more generate call
-   runs under torch.profiler, as the training step did
-   (build/chip_smoke/generate_ops.txt); K3's device time and launches in
-   that call ride on the slice line as k3_device_ms and
-   k3_device_launches. The profile's "attention" is every kernel that
-   the port's csrc/ sources declare.
+   loaded with DecodePredictor and asked for 8 prompts x 64 new tokens;
+   every step runs through the Engine's graph steps (serving/engine.py).
+   The generated tokens are checked teacher-forced: they are fed through
+   the same steps again, once replaying the kernels' graphs and once
+   through the steps' eager functions with the plain attention, and the
+   logits of every step must agree within a stated tolerance. The main
+   path's run is a steady-state generate through the graph steps (built
+   and captured by earlier ones) under torch.profiler
+   (build/chip_smoke/generate_graph_ops.txt), with the kernel counts
+   zeroed just before it: its replays launch K1 (prefill) and K3 (decode)
+   inside the graphs, where the host counts nothing and the profiler
+   counts 12 K1 per prefill and 12 K3 per decode step. The run fails
+   unless the host counts are 0 (nothing ran eagerly), the profiler's
+   are those, no step was built or captured, and its tokens are the
+   generated ones. K3's device time in that run rides on the slice line
+   as k3_device_ms. The profile's "attention" is every kernel that the
+   port's csrc/ sources declare.
+6. engine: the slice's generate through the steps' eager functions
+   (eager_steps(): the interpreter op by op, as before the Engine) and
+   through their CUDA graphs, in turns (eager, graph, graph, eager) in
+   one call: prefill ms, decode ms per token (mean, p50), tokens/s, peak
+   memory; per mode a profiled generate (device busy ms and idle share,
+   generate_eager_ops.txt and generate_graph_ops.txt: the graph one is
+   the main path's run) and the launch calls of one decode step (kernel
+   and graph launches); the builds and captures (traces: a later
+   generate adds none), the graphs' pools, and the tokens of every run
+   equal. Then the memory of generates over three buckets (the slice's
+   and two smaller ones, eager and graph tokens equal at each): the
+   bytes the step cache holds (slabs, buffers, graph pools) and the
+   device memory reserved after each; then the cache bounded to the
+   slice's bucket: the evictions and the memory after.
+7. predictor: inference.Predictor on the slice's prefill program
+   exported at the slice's prefill bucket (8 x 1024, K1 at the serving
+   shape), through its graph and its eager function in turns: ms per
+   call, the largest output difference, and its logits against the
+   DecodePredictor prefill's on the same prompts.
 
 Then one line with K1's BHTD and K2's (and K2-bf16's) pair numbers, one
 line
@@ -1046,47 +1071,85 @@ def env_set(name, value):
             os.environ[name] = old
 
 
+@contextlib.contextmanager
+def eager_steps():
+    """Run every GraphStep through its eager function (``run_eager``: the
+    program op by op from Python) instead of its CUDA graph: the engine
+    line's eager side, and the plain-attention pass, which must not
+    replay a graph of the kernels."""
+    from paddle_tpu_torch.serving.engine import GraphStep
+
+    saved = GraphStep.__call__
+    GraphStep.__call__ = GraphStep.run_eager
+    try:
+        yield
+    finally:
+        GraphStep.__call__ = saved
+
+
+def _decode_feeds(pred, slabs, cur, lens, seed):
+    """One decode step's feeds: ``cur`` (B,) tokens at ``lens`` (B,)."""
+    bb = cur.shape[0]
+    feeds = {"tokens": cur.reshape(bb, 1).astype(np.int64),
+             "positions": lens.reshape(bb, 1).astype(np.int64),
+             "lengths": lens.astype(np.int32),
+             "seed": np.array([seed], np.int64)}
+    for i in range(pred.config.n_layer):
+        feeds["kcache_%d" % i] = slabs[2 * i]
+        feeds["vcache_%d" % i] = slabs[2 * i + 1]
+    return feeds
+
+
 def teacher_forced_logits(pred, prompts, generated, max_new):
     """Logits of every step when the prompts and then ``generated`` (B,
-    max_new) are fed through the predictor's prefill and decode steps:
-    entry t is what produced generated[:, t]."""
+    max_new) are fed through the predictor's prefill and decode steps
+    (their graphs on the card; under eager_steps(), their eager
+    functions): entry t is what produced generated[:, t]."""
     import torch
 
     tokens, lens, b, s = pred._bucketed(prompts, max_new)
     bb = tokens.shape[0]
-    outs, caches = pred._prefill(tokens, lens, s)
-    logits = [outs[0][:b].float().clone()]
     dexe, _fetch_names = pred.acquire("decode", bb, s)
+    slabs = pred._slabs(dexe)
+    logits = [pred._prefill(tokens, lens, s, slabs)[:b].float()]
     lens = lens.copy()
     cur = np.zeros((bb,), np.int64)
     for t in range(1, max_new):
         cur[:b] = generated[:, t - 1]
-        feeds = {"tokens": cur.reshape(bb, 1),
-                 "positions": lens.reshape(bb, 1).astype(np.int64),
-                 "lengths": lens, "seed": np.array([t], np.int64)}
-        for i in range(pred.config.n_layer):
-            feeds["kcache_%d" % i] = caches[2 * i]
-            feeds["vcache_%d" % i] = caches[2 * i + 1]
-        outs = dexe(feeds, pred._state)
-        logits.append(outs[1][:b].float().clone())  # [next_ids, logits, ...]
-        caches = list(outs[2:])
+        logits.append(dexe(  # fetches [next_ids, logits, slabs...]
+            _decode_feeds(pred, slabs, cur, lens, t),
+            read=lambda outs: outs[1][:b].float().clone()))
         lens = lens + 1
     return torch.stack(logits, dim=1)                   # (B, max_new, V)
 
 
-def run_slice(config, prompt_lens, max_new, seed, place, workdir):
-    """Export, load and serve ``config`` with random weights; returns the
-    measurements, the teacher-forced comparison and, on the card, a
-    profile of one more generate call. Runs on any place (the CPU tests
-    rehearse it at a tiny size); the caller checks the kernel launch
-    counts."""
-    import torch
-    from paddle_tpu_torch import Scope
+def _k1_k3_counts(reset=False):
     from paddle_tpu_torch.ops.attention import flash_attention_fwd
     from paddle_tpu_torch.ops.kv_cache import decode_attention
+
+    if reset:
+        flash_attention_fwd.launches = decode_attention.launches = 0
+    return {"K1": flash_attention_fwd.launches,
+            "K3": decode_attention.launches}
+
+
+def run_slice(config, prompt_lens, max_new, seed, place, workdir):
+    """Export, load and serve ``config`` with random weights. Returns the
+    slice line: the timed runs, the teacher-forced comparison and the main
+    path's run (a steady-state generate through the graph steps, kernel
+    counts zeroed just before it; on the card under torch.profiler, whose
+    K1 and K3 counts ride as ``device_launches``); with the engine line
+    (eager against graph steps, memory over buckets, ``res["engine"]``)
+    and the predictor line (``res["predictor"]``) inside. Runs on any
+    place (the CPU tests rehearse it at a tiny size); the caller checks
+    the kernel launch counts."""
+    import torch
+    from paddle_tpu_torch import Scope
     from paddle_tpu_torch.serving.decode import (DecodeConfig,
                                                  DecodePredictor,
+                                                 _pow2_bucket,
                                                  save_decode_model)
+    from paddle_tpu_torch.serving.engine import GraphStep
 
     cfg = DecodeConfig(**config)
     t0 = time.perf_counter()
@@ -1096,6 +1159,13 @@ def run_slice(config, prompt_lens, max_new, seed, place, workdir):
     n_params = sum(int(np.prod(v.shape)) for v in scope.vars.values())
     model_dir = os.path.join(workdir, "model")
     save_decode_model(model_dir, cfg, None, scope=scope)
+    # the predictor line serves the prefill program at the slice's
+    # prefill bucket (K1 at the serving shape)
+    pbatch = _pow2_bucket(len(prompt_lens))
+    pseq = _pow2_bucket(int(max(prompt_lens)), floor=16)
+    predictor_dir = os.path.join(workdir, "predictor_model")
+    save_decode_model(predictor_dir, cfg, None, scope=scope,
+                      export_batch=pbatch, export_seq=pseq)
     del scope
     pred = DecodePredictor(model_dir, place=place)
     setup_s = time.perf_counter() - t0
@@ -1108,27 +1178,71 @@ def run_slice(config, prompt_lens, max_new, seed, place, workdir):
         if cuda:
             torch.cuda.synchronize()
 
-    pred.generate(prompts, max_new_tokens=max_new)      # warm-up
-    sync()
-    if cuda:
-        torch.cuda.reset_peak_memory_stats()
-    flash_attention_fwd.launches = 0
-    decode_attention.launches = 0
-    t0 = time.perf_counter()
-    out = pred.generate(prompts, max_new_tokens=max_new)
-    sync()
-    wall = time.perf_counter() - t0
-    launches = {"K1": flash_attention_fwd.launches,
-                "K3": decode_attention.launches}
-    timings = {k: list(v) for k, v in pred.timings.items()}
-    generated = np.stack(out)
+    def generate(eager, batch=None):
+        batch = prompts if batch is None else batch
+        sync()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with eager_steps() if eager else contextlib.nullcontext():
+            out = pred.generate(batch, max_new_tokens=max_new)
+        sync()
+        wall = time.perf_counter() - t0
+        steps = list(pred.timings["step"])
+        return np.stack(out), {
+            "prefill_ms": pred.timings["prefill"][0],
+            "decode_ms_per_token": float(np.mean(steps)),
+            "decode_ms_p50": float(np.median(steps)),
+            "generate_s": wall, "tokens_per_s": len(batch) * max_new / wall,
+            "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                            if cuda else None),
+            "peak_reserved_gb": (torch.cuda.max_memory_reserved() / 1e9
+                                 if cuda else None),
+            "prefill_calls": len(pred.timings["prefill"]),
+            "decode_steps": len(steps)}
+
+    def reserved_gb():
+        """Device memory the allocator holds beyond its free cache: the
+        graphs' private pools stay in it."""
+        if not cuda:
+            return 0.0
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved() / 1e9
+
+    # eager first: it builds the kernels and the steps, and no graph
+    # exists yet, so its peak memory holds no graph pool
+    generate(eager=True)
+    out, run = generate(eager=True)
+    runs = {"eager": [run], "graph": []}
+    tokens = [out]
+    traces = {"after_eager": pred.traces}
+    reserved_before = reserved_gb()
+    # the first generate through the graph steps captures them (each
+    # step's warm-up runs and its capture launch its kernels from the
+    # host); the later ones replay
+    out, cold = generate(eager=False)
+    tokens.append(out)
+    traces["after_first_graph_generate"] = pred.traces
+    reserved_after = reserved_gb()
+    for mode in ("graph", "graph", "eager"):
+        out, run = generate(eager=mode == "eager")
+        tokens.append(out)
+        runs[mode].append(run)
+    traces["after_timed"] = pred.traces
+    generated = tokens[0]
     if generated.shape != (len(prompts), max_new) or \
             generated.min() < 0 or generated.max() >= cfg.vocab_size:
         fail("generate returned tokens of shape %s in [%d, %d]"
              % (generated.shape, generated.min(), generated.max()))
+    tokens_equal = all(np.array_equal(t, generated) for t in tokens)
+    if not tokens_equal:
+        fail("eager and graph generate gave different tokens")
+    if traces["after_timed"] != traces["after_first_graph_generate"]:
+        fail("a generate at the same buckets built or captured again: %s"
+             % traces)
 
     kernel_logits = teacher_forced_logits(pred, prompts, generated, max_new)
-    with plain_attention():
+    with plain_attention(), eager_steps():
         plain_logits = teacher_forced_logits(pred, prompts, generated,
                                              max_new)
     replay_match = bool((kernel_logits.argmax(-1).cpu().numpy()
@@ -1136,19 +1250,58 @@ def run_slice(config, prompt_lens, max_new, seed, place, workdir):
     plain_agree = float((plain_logits.argmax(-1).cpu().numpy()
                          == generated).mean())
     err = float((kernel_logits - plain_logits).abs().max())
+    engine = {"phase": "engine", "tokens_equal": tokens_equal,
+              "traces": traces, "graph_warmup_runs": GraphStep.WARMUP,
+              "first_graph_generate": cold,
+              "graph_pools_gb": reserved_after - reserved_before,
+              "reserved_gb": reserved_after}
+    if cuda:
+        with eager_steps():
+            engine["eager"] = {
+                "profile": profile_generate(pred, prompts, max_new, workdir,
+                                            "generate_eager_ops.txt"),
+                "launches_per_decode_step": launches_per_decode_step(
+                    pred, prompts, max_new)}
+
+    # the main path: a steady-state generate through the graph steps,
+    # kernel counts zeroed just before it; on the card under the
+    # profiler, which counts the kernels the replays launch
+    got = {}
+
+    def main_path():
+        got["tokens"] = np.stack(pred.generate(prompts,
+                                               max_new_tokens=max_new))
+
+    _k1_k3_counts(reset=True)
+    if cuda:
+        profile = profile_call(main_path, os.path.join(
+            workdir, "generate_graph_ops.txt"))
+    else:
+        main_path()
+    launches = _k1_k3_counts()
+    traces["after_main_path"] = pred.traces
+    main = {"tokens_equal": bool(np.array_equal(got["tokens"], generated)),
+            "captures_or_builds": (traces["after_main_path"]
+                                   - traces["after_timed"]),
+            "prefill_calls": len(pred.timings["prefill"]),
+            "decode_steps": len(pred.timings["step"])}
+    if not main["tokens_equal"] or main["captures_or_builds"]:
+        fail("the main path's generate: %s" % main)
+    graph = runs["graph"][0]
     res = {
         "phase": "slice", "config": config, "params": n_params,
         "prompts": [int(n) for n in prompt_lens], "max_new_tokens": max_new,
-        "prefill_calls": len(timings["prefill"]),
-        "decode_steps": len(timings["step"]), "launches": launches,
-        "prefill_ms": timings["prefill"][0],
-        "decode_ms_per_token": float(np.mean(timings["step"])),
-        "decode_ms_p50": float(np.median(timings["step"])),
-        "generate_s": wall,
-        "tokens_per_s": len(prompts) * max_new / wall,
+        "prefill_calls": main["prefill_calls"],
+        "decode_steps": main["decode_steps"], "launches": launches,
+        "main_path": main,
+        "prefill_ms": graph["prefill_ms"],
+        "decode_ms_per_token": graph["decode_ms_per_token"],
+        "decode_ms_p50": graph["decode_ms_p50"],
+        "generate_s": graph["generate_s"],
+        "tokens_per_s": graph["tokens_per_s"],
+        "first_generate_s": cold["generate_s"],
         "setup_s": setup_s,
-        "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
-                        if cuda else None),
+        "peak_mem_gb": graph["peak_mem_gb"],
         "logits_max_abs_err": err, "logits_tol": LOGITS_TOL,
         "logits_finite": bool(torch.isfinite(kernel_logits).all()),
         "replay_matches_generate": replay_match,
@@ -1156,22 +1309,170 @@ def run_slice(config, prompt_lens, max_new, seed, place, workdir):
     }
     if not (res["logits_finite"] and err <= LOGITS_TOL and replay_match):
         fail("teacher-forced check failed: %s" % json.dumps(res))
+    for mode, got_runs in runs.items():
+        engine.setdefault(mode, {}).update(
+            {key: [r[key] for r in got_runs] for key in (
+                "prefill_ms", "decode_ms_per_token", "decode_ms_p50",
+                "generate_s", "tokens_per_s", "peak_mem_gb",
+                "peak_reserved_gb")})
     if cuda:
-        res["profile"] = profile_generate(pred, prompts, max_new, workdir)
-        k3 = res["profile"]["port_kernels"].get(
-            "decode_attn", {"device_ms": 0.0, "launches": 0})
-        res["k3_device_ms"] = k3["device_ms"]
-        res["k3_device_launches"] = k3["launches"]
+        res["profile"] = engine["graph"]["profile"] = profile
+        engine["graph"]["launches_per_decode_step"] = \
+            launches_per_decode_step(pred, prompts, max_new)
+        res["k3_device_ms"] = profile["port_kernels"].get(
+            "decode_attn", {"device_ms": 0.0})["device_ms"]
+        res["device_launches"] = {
+            name: profile["port_kernels"].get(src, {"launches": 0})[
+                "launches"]
+            for name, src in (("K1", "flash_fwd"), ("K3", "decode_attn"))}
+        engine["decode_speedup"] = (
+            float(np.mean(engine["eager"]["decode_ms_per_token"]))
+            / float(np.mean(engine["graph"]["decode_ms_per_token"])))
+    engine["memory"] = bucket_memory(pred, prompts, generate, reserved_gb)
+    res["engine"] = engine
+    res["predictor"] = run_predictor(predictor_dir, pred, prompts, max_new,
+                                     place)
     shutil.rmtree(model_dir, ignore_errors=True)
+    shutil.rmtree(predictor_dir, ignore_errors=True)
     return res
 
 
-def profile_generate(pred, prompts, max_new, out_dir):
+def bucket_memory(pred, prompts, generate, reserved_gb):
+    """Memory of generates over buckets: the slice's (steps already
+    cached), then two smaller ones (half the prompts cut to a quarter of
+    their length, a quarter of them cut to half), each through the eager
+    functions and the graphs with the same tokens: after each, the steps
+    cached, the bytes they hold (``StepCache.nbytes``: slabs, buffers,
+    graph pools) and the device memory reserved. Then the cache bounded
+    to the slice's steps' bytes plus half of the other buckets' (which
+    evicts the least recently used: the slice's steps), a generate at the
+    last bucket (a hit) and one at the slice's (built and captured again,
+    evicting the oldest of the others): evictions, memory and the same
+    tokens after each."""
+    cache = pred._steps
+
+    def state(label, batch):
+        return {"bucket": label, "prompts": len(batch),
+                "prompt_max": int(max(len(p) for p in batch)),
+                "steps": len(cache), "step_cache_gb": cache.nbytes / 1e9,
+                "reserved_gb": reserved_gb(), "evictions": cache.evictions,
+                "traces": pred.traces}
+
+    n = len(prompts)
+    batches = [("slice", prompts),
+               ("half_quarter", [p[:max(1, len(p) // 4)]
+                                 for p in prompts[:max(1, n // 2)]]),
+               ("quarter_half", [p[:max(1, len(p) // 2)]
+                                 for p in prompts[:max(1, n // 4)]])]
+    slice_bytes = cache.nbytes
+    out = {"unbounded": [], "slice_step_gb": slice_bytes / 1e9}
+    want = {}
+    for label, batch in batches:
+        eager, _ = generate(True, batch)
+        want[label], run = generate(False, batch)
+        if not np.array_equal(eager, want[label]):
+            fail("eager and graph generate differ at bucket %s" % label)
+        out["unbounded"].append(dict(state(label, batch),
+                                     peak_mem_gb=run["peak_mem_gb"]))
+    bound = slice_bytes + (cache.nbytes - slice_bytes) // 2
+    out["bound_gb"] = bound / 1e9
+    saved, cache.max_bytes = cache.max_bytes, bound
+    try:
+        out["bounded"] = [state("bound set", prompts)]
+        for label, batch in (batches[-1], batches[0]):
+            got, run = generate(False, batch)
+            if not np.array_equal(got, want[label]):
+                fail("the bounded cache's generate at bucket %s gave other "
+                     "tokens" % label)
+            out["bounded"].append(dict(state(label, batch),
+                                       peak_mem_gb=run["peak_mem_gb"]))
+        if cache.nbytes > bound or not cache.evictions:
+            fail("the bounded step cache holds %d bytes past %d with %d "
+                 "evictions" % (cache.nbytes, bound, cache.evictions))
+    finally:
+        cache.max_bytes = saved
+    return out
+
+
+def launches_per_decode_step(pred, prompts, max_new):
+    """Host launch calls of one call of the slice's decode step, from
+    torch.profiler (the CUDA API calls it records): kernel launches
+    and graph launches, and the device kernels the call ran."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    tokens, lens, b, s = pred._bucketed(prompts, max_new)
+    dexe, _ = pred.acquire("decode", tokens.shape[0], s)
+    cur = tokens[:, 0].copy()
+    feeds = _decode_feeds(pred, pred._slabs(dexe), cur, lens, 1)
+    dexe(feeds, read=lambda outs: outs[0].cpu())
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        dexe(feeds, read=lambda outs: outs[0].cpu())
+        torch.cuda.synchronize()
+    got = {"kernel_launches": 0, "graph_launches": 0, "device_kernels": 0}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            if "memcpy" not in e.key.lower() and \
+                    "memset" not in e.key.lower():
+                got["device_kernels"] += e.count
+        elif e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")):
+            got["kernel_launches"] += e.count
+        elif e.key.startswith("cudaGraphLaunch"):
+            got["graph_launches"] += e.count
+    return got
+
+
+def run_predictor(model_dir, pred, prompts, max_new, place, calls=5):
+    """The predictor line: ``inference.Predictor`` on the slice's prefill
+    export, through its graph step against its eager function in turns
+    (eager, graph, graph, eager; ``calls`` calls each): ms per call, the
+    largest difference of their outputs, and their logits against the
+    DecodePredictor prefill's on the same prompts."""
+    import torch
+    from paddle_tpu_torch.inference import Predictor
+
+    p = Predictor(model_dir, place=place)
+    tokens, lens, b, s = pred._bucketed(prompts, max_new)
+    sp = p._feed_plan[0][1].shape[1]
+    feed = {"tokens": tokens[:, :sp], "lengths": lens}
+    want = pred._prefill(tokens, lens, s).cpu().numpy()
+    times = {"eager": [], "graph": []}
+    outs = {}
+    for mode in ("eager", "graph", "graph", "eager"):
+        with eager_steps() if mode == "eager" else contextlib.nullcontext():
+            outs[mode] = p.run(feed)[0]          # warm-up (and capture)
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                p.run(feed)
+            times[mode].append((time.perf_counter() - t0) / calls * 1e3)
+    diff = float(np.abs(outs["graph"] - outs["eager"]).max())
+    vs_decode = float(np.abs(outs["graph"] - want).max())
+    res = {"phase": "predictor", "export": [int(n) for n in
+                                            tokens[:, :sp].shape],
+           "fetches": p.fetch_names, "ms_per_call": times,
+           "graph_vs_eager_max_abs": diff,
+           "vs_decode_prefill_max_abs": vs_decode,
+           "vs_decode_prefill_equal": bool(vs_decode == 0.0),
+           "traces": p.traces, "tol": LOGITS_TOL}
+    if not (np.isfinite(outs["graph"]).all() and diff <= LOGITS_TOL
+            and vs_decode <= LOGITS_TOL):
+        fail("predictor check failed: %s" % json.dumps(res))
+    del p
+    if place.torch_device().type == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def profile_generate(pred, prompts, max_new, out_dir,
+                     table="generate_ops.txt"):
     """One more generate call under torch.profiler (see profile_call);
-    the op tables land in ``out_dir``/generate_ops.txt."""
+    the op tables land in ``out_dir``/``table``."""
     return profile_call(
         lambda: pred.generate(prompts, max_new_tokens=max_new),
-        os.path.join(out_dir, "generate_ops.txt"))
+        os.path.join(out_dir, table))
 
 
 @functools.lru_cache(maxsize=None)
@@ -1968,14 +2269,22 @@ def main(argv=None):
 
     sl = run_slice(FULL_CONFIG, prompt_lens, MAX_NEW, args.seed,
                    CUDAPlace(0), workdir)
-    sl["gpu"] = smi
-    emit(sl)
+    engine, predictor = sl.pop("engine"), sl.pop("predictor")
+    sl["gpu"] = engine["gpu"] = predictor["gpu"] = smi
     n_layer = FULL_CONFIG["n_layer"]
-    want = {"K1": n_layer * sl["prefill_calls"],
-            "K3": n_layer * sl["decode_steps"]}
-    if sl["launches"] != want or not all(want.values()):
-        fail("kernel launches on the main path %s, expected %s"
-             % (sl["launches"], want))
+    # the main path's run replays the graphs: the host launches nothing,
+    # the profiler counts the kernels inside the replays
+    want_each = {"K1": n_layer * sl["prefill_calls"],
+                 "K3": n_layer * sl["decode_steps"]}
+    emit(sl)
+    emit(engine)
+    emit(predictor)
+    if sl["launches"] != {"K1": 0, "K3": 0}:
+        fail("the main path's generate launched kernels from the host %s: "
+             "a step ran eagerly" % sl["launches"])
+    if sl["device_launches"] != want_each:
+        fail("kernel launches in the main path's generate %s (profiler), "
+             "expected %s" % (sl["device_launches"], want_each))
 
     # each kernel: its launches on each main path (one training step; the
     # fused-backward step and the BHTD step; one generate call), its error
@@ -1999,9 +2308,10 @@ def main(argv=None):
               "paddle_tpu/ops/attention.py:172",
               {"train_step": per_step["K1"],
                "train_step_bhtd": tr["bhtd_launches"]["K1"],
-               "generate": sl["launches"]["K1"]},
+               "generate": sl["device_launches"]["K1"]},
               k1["max_abs_err"], k1["ms"], k1["plain_ms"],
               (k1["bound_ms"], k1["bound_by"]), k1["library_ms"],
+              generate_host_launches=sl["launches"]["K1"],
               fp32_bound_ms=k1["fp32_bound_ms"], host_us=k1["host_us"],
               sass=sass_of("flash_fwd"),
               **{"serving_" + key: k1_serve[key] for key in (
@@ -2025,11 +2335,11 @@ def main(argv=None):
               sass=sass_of("flash_bwd_dkv")),
         entry("decode_attn", csrc + "decode_attn.cu",
               "paddle_tpu/ops/kv_cache.py:88",
-              {"generate": sl["launches"]["K3"]},
+              {"generate": sl["device_launches"]["K3"]},
               k3["max_abs_err"], k3["ms"], k3["plain_ms"],
               (k3["bound_ms"], k3["bound_by"]),
-              k3["library_ms"], k3_device_ms=sl["k3_device_ms"],
-              k3_device_launches=sl["k3_device_launches"],
+              k3["library_ms"], generate_host_launches=sl["launches"]["K3"],
+              k3_device_ms=sl["k3_device_ms"],
               **{"full_" + key: k3_full[key] for key in (
                   "lengths", "ms", "bound_ms", "bound_by")},
               empty_ms=k3_empty["ms"]),

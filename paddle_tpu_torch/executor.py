@@ -16,8 +16,10 @@ Each program has its own step counter, folded into its random stream, so
 running the startup program does not move the main program's stream.
 
 Not ported: the optimizing transpiler (an ``opt_level`` other than 0),
-``run_loop`` and reader ops raise NotImplementedError; feed bucketizing,
-the compile caches and NaN checks have no parameter here.
+``run_loop`` and reader ops raise NotImplementedError; the compile
+caches and NaN checks have no parameter here. ``run`` does not bucketize
+its feeds; ``inference.Predictor`` does, through the static helpers
+``_check_feed_shapes``, ``_bucketize_feeds`` and ``_slice_bucketized``.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ from .framework.interpreter import RngStream, run_block
 from .framework.scope import (CUDAPlace, Place, Scope, fp32_sums,
                               global_scope)
 
-__all__ = ["Executor", "analyze_state"]
+__all__ = ["Executor", "analyze_state", "next_pow2"]
 
 
 def analyze_state(program: Program, feed_names):
@@ -54,6 +56,14 @@ def analyze_state(program: Program, feed_names):
                     seen_w.add(name)
                     written.append(name)
     return read, written
+
+
+def next_pow2(n: int) -> int:
+    """The least power of two >= n (1 for n <= 1)."""
+    b = 1
+    while b < n:
+        b *= 2
+    return b
 
 
 def _fetch_name(f) -> str:
@@ -146,6 +156,66 @@ class Executor:
                     val = val.cpu().numpy()
             fetches.append(val)
         return fetches
+
+    @staticmethod
+    def _check_feed_shapes(program: Program, feed_sig):
+        """Fail fast with the variable name when a feed's shape cannot
+        match its declaration (wrong rank, or a static dim mismatch);
+        ``feed_sig`` is ``((name, shape, dtype), ...)``."""
+        gb = program.global_block()
+        for name, shape, _dtype in feed_sig:
+            var = gb._find_var_recursive(name)
+            declared = getattr(var, "shape", None) if var is not None else None
+            if not declared:
+                continue
+            declared = tuple(declared)
+            ok = len(declared) == len(shape) and all(
+                d in (-1, None) or d == s for d, s in zip(declared, shape))
+            if not ok:
+                raise ValueError(
+                    "feed %r has shape %s but the program declares %s "
+                    "(-1 = any); fix the feed or the layers.data "
+                    "declaration" % (name, tuple(shape), declared))
+
+    @staticmethod
+    def _bucketize_feeds(program: Program, feed_arrays):
+        """Apply a bucketize stamp (``program._bucketize``) at the feed
+        boundary: pad every stamped feed's batch axis with zero rows up to
+        the next power of two, so the feed signature is the bucket, not
+        the raw batch size. Returns the real row count to slice fetches
+        back to, or None when the stamp does not apply to this call (a
+        stamped feed missing, or row counts that disagree: the call then
+        runs at its raw signature, still correct)."""
+        bkt = getattr(program, "_bucketize", None)
+        if not bkt:
+            return None
+        names = bkt.get("feeds") or ()
+        rows = set()
+        for name in names:
+            arr = feed_arrays.get(name)
+            if arr is None or getattr(arr, "ndim", 0) < 1:
+                return None
+            rows.add(int(arr.shape[0]))
+        if len(rows) != 1:
+            return None
+        n = rows.pop()
+        bucket = next_pow2(n)
+        if bucket != n:
+            for name in names:
+                arr = np.asarray(feed_arrays[name])
+                pad = np.zeros((bucket - n,) + arr.shape[1:], arr.dtype)
+                feed_arrays[name] = np.concatenate([arr, pad], axis=0)
+        return n
+
+    @staticmethod
+    def _slice_bucketized(program: Program, fetch_names, outs, n):
+        """Slice batch-carrying fetches (the stamp lists them) back to the
+        real row count ``n``."""
+        if n is None:
+            return outs
+        sliced = set(getattr(program, "_bucketize", {}).get("fetches", ()))
+        return [o[:n] if name in sliced else o
+                for name, o in zip(fetch_names, outs)]
 
     def run_loop(self, *args, **kwargs):
         raise NotImplementedError(

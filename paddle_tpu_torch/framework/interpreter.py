@@ -27,7 +27,7 @@ fp32.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
@@ -224,12 +224,31 @@ def run_op(op: Operator, block: Block, env: Dict, device: torch.device,
             env[name] = val
 
 
+def _drops(ops, keep) -> Dict[int, List[str]]:
+    """{position in ``ops``: the names no later op reads or writes}, less
+    ``keep``."""
+    last = {}
+    for n, (_, op) in enumerate(ops):
+        for name in op.input_arg_names + op.output_arg_names:
+            last[name] = n
+    drops: Dict[int, List[str]] = {}
+    for name, n in last.items():
+        if name not in keep:
+            drops.setdefault(n, []).append(name)
+    return drops
+
+
 def run_block(block: Block, env: Dict, device: torch.device,
-              rng: Optional[RngStream] = None) -> Dict:
+              rng: Optional[RngStream] = None,
+              keep: Optional[Sequence[str]] = None) -> Dict:
     """Run every op of ``block`` in order on ``env`` (mutated in place and
     returned); ``device`` is where ops that make tensors from attrs put
     them, ``rng`` the program's random stream for this step (seed 0, step
-    0 when not given)."""
+    0 when not given). With ``keep``, a block without ``autodiff`` drops
+    each other variable from ``env`` after the last op that reads or
+    writes it, so its memory is reused while the block runs (a captured
+    CUDA graph's pool then holds what is live at once, not every
+    intermediate)."""
     rng = rng if rng is not None else RngStream()
     ops = [(i, op) for i, op in enumerate(block.ops)
            if op.type not in _SKIP_OPS]
@@ -241,8 +260,11 @@ def run_block(block: Block, env: Dict, device: torch.device,
                rng.for_op(block.idx, op.attrs.get(_RNG_IDX_ATTR, i), device))
 
     if first_ad is None:
-        for i, op in ops:
+        drops = _drops(ops, set(keep)) if keep is not None else {}
+        for n, (i, op) in enumerate(ops):
             run(i, op)
+            for name in drops.get(n, ()):
+                env.pop(name, None)
         return env
 
     # -- training: the forward prefix once, under autograd ----------------

@@ -20,6 +20,7 @@ attends the slab with a single query. Three ops:
 """
 from __future__ import annotations
 
+import contextvars
 import ctypes
 import math
 
@@ -32,8 +33,31 @@ _HEAD_DIMS = (64, 128)
 _FN = None
 # K3's per-(b, h) counters, zeroed once per (device, stream, B*H) and left
 # zeroed by every launch (see csrc/decode_attn.cu); calls on one stream
-# never overlap, so they may share a buffer
+# never overlap, so they may share a buffer. Inside ``own_counters(store)``
+# the buffers come from ``store`` instead, by (device, B*H)
 _COUNTERS = {}
+_OWNED = contextvars.ContextVar("decode_attention_counters", default=None)
+
+
+class own_counters:
+    """``with own_counters(store):`` K3 calls inside take their counters
+    from ``store`` (a dict the caller keeps alive), not from their
+    stream's. A CUDA graph whose warm-up and capture run inside keeps
+    counters of its own: a replay runs on its caller's stream, so counters
+    keyed by the capture stream could be shared with other graphs
+    replayed on other streams at once."""
+
+    def __init__(self, store):
+        self.store = store
+        self._token = None
+
+    def __enter__(self):
+        self._token = _OWNED.set(self.store)
+        return self.store
+
+    def __exit__(self, *exc):
+        _OWNED.reset(self._token)
+        return False
 
 
 def _bind(lib):
@@ -83,9 +107,14 @@ def decode_kernel_split():
 
 
 def _counters(device, n):
-    stream = torch.cuda.current_stream(device)
-    key = (device.index, stream.cuda_stream, n)
-    buf = _COUNTERS.get(key)
+    store = _OWNED.get()
+    if store is None:
+        store = _COUNTERS
+        key = (device.index, torch.cuda.current_stream(device).cuda_stream,
+               n)
+    else:
+        key = (device.index, n)
+    buf = store.get(key)
     if buf is None:
         if torch.cuda.is_current_stream_capturing():
             # made here, the buffer would come from the graph's memory and
@@ -93,8 +122,7 @@ def _counters(device, n):
             raise RuntimeError(
                 "decode attention: call it once on this stream before "
                 "capturing the stream into a CUDA graph")
-        buf = _COUNTERS[key] = torch.zeros(n, dtype=torch.int32,
-                                           device=device)
+        buf = store[key] = torch.zeros(n, dtype=torch.int32, device=device)
     return buf
 
 
@@ -127,7 +155,8 @@ def decode_attention(q, k_cache, v_cache, lengths, scale=None):
     tensors that start on 16-byte boundaries: its row loads are 16-byte
     copies) or raise. One launch, on the current stream; it allocates its
     output and one scratch buffer, and shares the per-(b, h) counters of
-    its (device, stream, B*H) with the calls before it on that stream. A
+    its (device, stream, B*H) with the calls before it on that stream
+    (inside ``own_counters``, of its (device, B*H) in that store). A
     stream is captured into a CUDA graph only after one call on it."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, lengths, scale)

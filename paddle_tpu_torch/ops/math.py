@@ -1,7 +1,7 @@
 """Math / tensor op kernels (counterpart of paddle_tpu/ops/math.py).
 
 The ops of the decoder LM's programs: elementwise_add with the
-reference's axis-broadcast rule, mean, relu, mul/matmul,
+reference's axis-broadcast rule, mean, relu, softmax, mul/matmul,
 reshape/transpose, gather, lookup_table, cast, assign/assign_value and
 fill_constant. They are plain PyTorch on whatever device their inputs lie
 on; the 2-D products go to ``torch.matmul``, as the JAX package left them
@@ -12,6 +12,7 @@ rounds its result to bf16, as the reference's ``_mm2d`` does with
 from __future__ import annotations
 
 import math as _math
+import weakref
 
 import numpy as np
 import torch
@@ -64,6 +65,12 @@ def _mean(ctx):
 @register_op("relu")
 def _relu(ctx):
     return {"Out": torch.relu(ctx.input("X"))}
+
+
+@register_op("softmax")
+def _softmax(ctx):
+    """Softmax over the last axis (reference: softmax_op.cc)."""
+    return {"Out": torch.softmax(ctx.input("X"), dim=-1)}
 
 
 # ---------------------------------------------------------------------------
@@ -178,14 +185,29 @@ def _assign(ctx):
     return {"Out": ctx.input("X")}
 
 
+# assign_value's tensors, made once per (op, device): a host-to-device copy
+# on every run would block a CUDA graph capture, and bake a host address
+# into the graph if it did not
+_CONSTANTS = weakref.WeakKeyDictionary()
+
+
 @register_op("assign_value")
 def _assign_value(ctx):
     """Attr-embedded data (a numpy array once the program is built or
-    read back from JSON) as a tensor on the program's device."""
-    dtype = ctx.attr("dtype", "float32")
-    arr = np.asarray(ctx.attr("values"),
-                     dtype=as_numpy_dtype(dtype)).reshape(ctx.attr("shape"))
-    return {"Out": torch.from_numpy(arr).to(ctx.device)}
+    read back from JSON) as a tensor on the program's device, copied from
+    the host on the op's first run there and reused after (callers never
+    write into it)."""
+    made = _CONSTANTS.setdefault(ctx.op, {})
+    out = made.get(ctx.device)
+    if out is None:
+        dtype = ctx.attr("dtype", "float32")
+        arr = np.asarray(ctx.attr("values"), dtype=as_numpy_dtype(
+            dtype)).reshape(ctx.attr("shape"))
+        # a normal tensor even when first made under inference mode, so a
+        # training run of the same op may use it
+        with torch.inference_mode(False):
+            out = made[ctx.device] = torch.from_numpy(arr).to(ctx.device)
+    return {"Out": out}
 
 
 @register_op("fill_constant")

@@ -58,6 +58,11 @@ class OpContext:
         self.device = device
         self._rng_fn = rng_fn
 
+    @property
+    def op(self):
+        """The Operator this context runs."""
+        return self._op
+
     # -- inputs ---------------------------------------------------------
     def input(self, slot: str, default=None):
         names = self._op.input(slot)

@@ -14,9 +14,15 @@ paddle_tpu/serving/decode.py).
   slabs, in place; single-query ``decode_attention``; in-graph greedy
   sampling, so only token ids cross to the host). Batch and slab length
   bucket to powers of two exactly as in the JAX package, so the two
-  packages run the same programs on the same padded inputs. PyTorch runs
-  eagerly: a built program is cached per (kind, batch, seq) signature and
-  run op by op by the interpreter; there is no compiled-executable cache.
+  packages run the same programs on the same padded inputs. Each
+  (kind, batch, seq, strategy) program is built once and wrapped by the
+  Engine (serving/engine.py) in a GraphStep: on the card it is captured
+  into one CUDA graph on its first call and replayed by every later one,
+  as the JAX package compiles each bucket once and replays the
+  executable. The decode step's K/V slabs are its static feed buffers:
+  the prefill writes into them and every decode step appends to them in
+  place. The steps live in one StepCache, bounded in bytes: a bucket
+  least recently used is evicted with its graph, pool and slabs.
 
 On the card the prefill's attention is kernel K1 and each decode step's
 is kernel K3 (ops/attention.py, ops/kv_cache.py).
@@ -141,13 +147,17 @@ class DecodePredictor:
     is the static-batch surface (one call, one bucketed batch, run to
     completion). After a call, ``timings`` holds its prefill and
     per-step host times in ms (each ends in a device-to-host read of the
-    sampled ids, so it covers the device work).
+    sampled ids, so it covers the device work). ``max_step_bytes`` bounds
+    the device memory of the cached steps (slabs, buffers and graph
+    pools; None: ``engine.default_step_bytes``, half the card).
     """
 
     def __init__(self, model_dir: str, place=None, strategy: str = "greedy",
-                 eos_id: Optional[int] = None):
+                 eos_id: Optional[int] = None,
+                 max_step_bytes: Optional[int] = None):
         from .. import io as fluid_io
         from ..framework.scope import CUDAPlace, Scope, fp32_sums
+        from .engine import StepCache, default_step_bytes
 
         self.place = CUDAPlace(0) if place is None else place
         self.device = self.place.torch_device()
@@ -172,8 +182,14 @@ class DecodePredictor:
                 raise RuntimeError(
                     "decode model is missing persistable %r" % n)
             self._state[n] = val
-        self._built: Dict = {}
+        self._engines: Dict = {}   # the built programs, by signature
+        self._steps = StepCache(default_step_bytes(self.device)
+                                if max_step_bytes is None
+                                else max_step_bytes)
         self._lock = threading.Lock()
+        # one generate at a time: a decode bucket's slabs are its step's
+        # static buffers, shared by every call at that bucket
+        self._generating = threading.Lock()
         self.timings: Dict[str, List[float]] = {"prefill": [], "step": []}
 
     # -- graph building ---------------------------------------------------
@@ -240,36 +256,36 @@ class DecodePredictor:
 
     def acquire(self, kind: str, batch: int, seq: int,
                 strategy: Optional[str] = None):
-        """The step function for one (kind, batch, seq, strategy)
-        signature, built once and cached. Returns (step, fetch_names);
-        ``step(feeds, state)`` runs the program on the predictor's device
-        and returns the fetched tensors in order."""
-        from ..framework.interpreter import run_block
+        """The step for one (kind, batch, seq, strategy) signature, looked
+        up by its key in the Engine's memory tier (serving/engine.py),
+        built there on a miss; the program is built once. Returns (step,
+        fetch_names); ``step(feeds, read=None)`` is a GraphStep: it copies
+        the feeds into its static buffers and, on the card, replays the
+        program's CUDA graph (captured on its first call). Its outputs are
+        valid until its next call."""
+        from ..framework.dtypes import as_torch_dtype
+        from .engine import Engine
 
         strategy = strategy or self.strategy
         ck = (kind, batch, seq, strategy if kind == "decode" else "")
         with self._lock:
-            hit = self._built.get(ck)
-        if hit is not None:
-            return hit
-        program, feed_names, fetch_names = self._build(kind, batch, seq,
-                                                       strategy)
-        block = program.global_block()
-        device = self.device
+            engine = self._engines.get(ck)
+            if engine is None:
+                program, feed_names, fetch_names = self._build(
+                    kind, batch, seq, strategy)
+                engine = self._engines[ck] = Engine(
+                    program, memory=self._steps, feed_names=feed_names,
+                    fetch_names=fetch_names)
+        specs = [(n, tuple(var.shape), as_torch_dtype(var.dtype))
+                 for n, var, _ in engine.feed_plan()]
+        step = engine.graph_step(kind, specs, self._state, self.device)
+        return step, list(engine.fetch_names)
 
-        def step(feeds, state):
-            env = dict(state)
-            for name in feed_names:
-                val = feeds[name]
-                env[name] = (val.to(device) if isinstance(val, torch.Tensor)
-                             else torch.from_numpy(np.asarray(val)).to(device))
-            with torch.inference_mode():
-                run_block(block, env, device)
-            return tuple(env[n] for n in fetch_names)
-
-        with self._lock:
-            self._built[ck] = (step, fetch_names)
-        return step, fetch_names
+    @property
+    def traces(self) -> int:
+        """Steps built plus graphs captured: a second ``generate`` at the
+        same buckets adds none."""
+        return self._steps.traces
 
     # -- batching ---------------------------------------------------------
     def _bucketed(self, prompts: Sequence[np.ndarray], max_new: int,
@@ -298,21 +314,32 @@ class DecodePredictor:
             lens[i] = plens[i]
         return tokens, lens, b, s
 
-    def _prefill(self, tokens, lens, slab_seq):
-        """Run prefill at the PROMPTS' own pow2 sequence bucket, then
-        zero-pad the returned K/V rows out to the slab length — prompt
-        cost scales with the prompt, not with the decode budget. Returns
-        (fetches, caches)."""
+    def _prefill(self, tokens, lens, slab_seq, slabs=None):
+        """Run prefill at the PROMPTS' own pow2 sequence bucket (prompt
+        cost scales with the prompt, not with the decode budget) and
+        return its last-position logits (B, V). With ``slabs``, the decode
+        bucket's K/V slabs ([k_0, v_0, k_1, ...], ``slab_seq`` rows), its
+        K/V land in their rows [0:sp] and rows [sp:] are zeroed, as the
+        JAX package's zero pad leaves them."""
         bb = tokens.shape[0]
         sp = min(_pow2_bucket(int(lens.max()), floor=16), slab_seq)
         pexe, _ = self.acquire("prefill", bb, sp)
-        outs = pexe({"tokens": tokens[:, :sp], "lengths": lens},
-                    self._state)
-        caches = list(outs[1:])
-        if sp < slab_seq:
-            caches = [torch.nn.functional.pad(c, (0, 0, 0, 0, 0, slab_seq - sp))
-                      for c in caches]
-        return outs, caches
+
+        def read(outs):
+            if slabs is not None:
+                with torch.inference_mode():
+                    for slab, cache in zip(slabs, outs[1:]):
+                        slab[:, :sp].copy_(cache)
+                        slab[:, sp:].zero_()
+            return outs[0].clone()
+
+        return pexe({"tokens": tokens[:, :sp], "lengths": lens}, read=read)
+
+    def _slabs(self, dstep) -> list:
+        """A decode step's K/V slab buffers, [k_0, v_0, k_1, ...]."""
+        return [dstep.static["%s_%d" % (kv, i)]
+                for i in range(self.config.n_layer)
+                for kv in ("kcache", "vcache")]
 
     # -- generation (static batch, run to completion) ----------------------
     def generate(self, prompts: Sequence[np.ndarray],
@@ -321,7 +348,8 @@ class DecodePredictor:
                  ) -> List[np.ndarray]:
         """Generate up to ``max_new_tokens`` per prompt (stopping a row
         early at ``eos_id``). Returns one int64 array of generated ids
-        per prompt. Only ``strategy="greedy"`` is ported."""
+        per prompt. Only ``strategy="greedy"`` is ported. Calls from
+        several threads run one at a time."""
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1, got %d"
                              % max_new_tokens)
@@ -331,21 +359,29 @@ class DecodePredictor:
                 "decode strategy %r is a later slice of the port (greedy)"
                 % (strategy,))
         eos = eos_id if eos_id is not None else self.eos_id
+        with self._generating:
+            return self._generate(prompts, max_new_tokens, strategy, seed,
+                                  eos)
+
+    def _generate(self, prompts, max_new_tokens, strategy, seed, eos):
+        from ..ops.sampling import greedy_sample
+
         self.timings = {"prefill": [], "step": []}
         tokens, lens, b, s = self._bucketed(prompts, max_new_tokens)
         bb = tokens.shape[0]
+        dexe = slabs = None
+        if max_new_tokens > 1:
+            dexe, _fetch_names = self.acquire("decode", bb, s, strategy)
+            slabs = self._slabs(dexe)
         t0 = time.perf_counter()
-        outs, caches = self._prefill(tokens, lens, s)
-        from ..ops.sampling import greedy_sample
-
-        cur = greedy_sample(outs[0]).cpu().numpy()
+        logits = self._prefill(tokens, lens, s, slabs)
+        cur = greedy_sample(logits).cpu().numpy()
         self.timings["prefill"].append((time.perf_counter() - t0) * 1e3)
         generated = [[int(cur[i])] for i in range(b)]
         finished = np.array([eos is not None and int(cur[i]) == eos
                              for i in range(b)])
-        if max_new_tokens > 1 and not finished.all():
-            dexe, _fetch_names = self.acquire("decode", bb, s, strategy)
-            self._plain_decode_steps(dexe, caches, cur, lens.copy(),
+        if dexe is not None and not finished.all():
+            self._plain_decode_steps(dexe, slabs, cur, lens.copy(),
                                      generated, finished, b, s, eos,
                                      max_new_tokens, seed)
         return [np.asarray(g, np.int64) for g in generated]
@@ -371,10 +407,9 @@ class DecodePredictor:
                 feeds["kcache_%d" % i] = caches[2 * i]
                 feeds["vcache_%d" % i] = caches[2 * i + 1]
             t0 = time.perf_counter()
-            outs = dexe(feeds, self._state)
-            nxt = outs[0].cpu().numpy().astype(np.int64)
+            nxt = dexe(feeds, read=lambda outs: outs[0].cpu().numpy())
+            nxt = nxt.astype(np.int64)
             self.timings["step"].append((time.perf_counter() - t0) * 1e3)
-            caches = list(outs[2:])
             for i in range(b):
                 if finished[i]:
                     continue

@@ -84,7 +84,7 @@ def test_prefill_logits_and_slabs_match_jax(jax_pred, port_pred):
     pexe, pnames = port_pred.acquire("prefill", tokens.shape[0], s)
     assert jnames == pnames and len(pnames) == 1 + 2 * L
     want = jexe({"tokens": tokens, "lengths": lens}, jax_pred._state)
-    got = pexe({"tokens": tokens, "lengths": lens}, port_pred._state)
+    got = pexe({"tokens": tokens, "lengths": lens})
     for name, g, w in zip(pnames, got, want):
         assert tuple(g.shape) == tuple(w.shape), name
         np.testing.assert_allclose(_np(g), np.asarray(w), err_msg=name,
@@ -120,7 +120,7 @@ def test_incremental_decode_matches_full_forward(port_pred):
     rows = np.arange(bb)
     want = [[] for _ in range(b)]
     for _ in range(steps):
-        outs = pexe({"tokens": tokens, "lengths": lens}, port_pred._state)
+        outs = pexe({"tokens": tokens, "lengths": lens})
         nxt = outs[0].numpy().argmax(axis=1)
         for i in range(b):
             want[i].append(int(nxt[i]))

@@ -1,7 +1,8 @@
 """The port's CUDA kernels (K1 flash attention forward, K2 and K4 its
 backward, K3 decode attention, and the bf16 twins K1-bf16, K2-bf16 and
-K4-bf16) against their plain PyTorch versions, on the card. These tests
-need a CUDA device and skip without one. This file imports neither JAX
+K4-bf16) against their plain PyTorch versions, on the card, and the
+Engine's graph steps (serving/engine.py) against their eager functions.
+These tests need a CUDA device and skip without one. This file imports neither JAX
 nor the JAX package, so it runs where only torch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu_kernels.py
@@ -403,3 +404,181 @@ def test_bf16_kernels_in_cuda_graph(card, monkeypatch, fused):
     torch.cuda.synchronize()
     plain, ref = _bf16_refs(q, k, v, do, True, lens, "bhtd")
     assert all(_bf16_ok(g, p, r) for g, p, r in zip(got, plain, ref))
+
+
+# ---------------------------------------------------------------------------
+# the Engine's graph steps (serving/engine.py) on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def tiny_lm(card, tmp_path):
+    """A DecodePredictor on the card over a 2-layer LM (2 heads of 64)
+    with random weights from a seed, exported by the port."""
+    import numpy as np
+    from paddle_tpu_torch import (CUDAPlace, Program, Scope, program_guard,
+                                  unique_name)
+    from paddle_tpu_torch.serving import decode as D
+
+    cfg = D.DecodeConfig(vocab_size=97, n_layer=2, n_head=2, d_model=128,
+                         d_inner=256, max_len=128)
+    prog, startup = Program(), Program()
+    with program_guard(prog, startup):
+        with unique_name.guard():
+            D._prefill_graph(cfg, 1, 16)
+    rng = np.random.default_rng(0)
+    scope = Scope()
+    for op in startup.global_block().ops:
+        name, shape = op.output("Out")[0], tuple(op.attr("shape"))
+        if op.type == "gaussian_random":
+            val = rng.standard_normal(shape).astype(np.float32) * 0.1
+        else:
+            val = np.full(shape, op.attr("value"), np.float32)
+        scope.set_var(name, val)
+    D.save_decode_model(str(tmp_path), cfg, None, scope=scope)
+    return D.DecodePredictor(str(tmp_path), place=CUDAPlace(0))
+
+
+def _clone(outs):
+    return [o.clone() for o in outs]
+
+
+def _decode_step_feeds(pred, slabs, tokens, lens, seed):
+    import numpy as np
+
+    bb = tokens.shape[0]
+    feeds = {"tokens": tokens.reshape(bb, 1).astype(np.int64),
+             "positions": lens.reshape(bb, 1).astype(np.int64),
+             "lengths": lens, "seed": np.array([seed], np.int64)}
+    for i in range(pred.config.n_layer):
+        feeds["kcache_%d" % i] = slabs[2 * i]
+        feeds["vcache_%d" % i] = slabs[2 * i + 1]
+    return feeds
+
+
+@pytest.mark.gpu
+def test_captured_steps_match_their_eager_functions(tiny_lm):
+    """The prefill and decode steps replayed from their CUDA graphs give
+    their eager functions' outputs bitwise (K1 and K3 repeat bitwise, and
+    cuBLAS picks the same kernels under capture); a replay after the feeds
+    change gives the new answer."""
+    import numpy as np
+
+    pred = tiny_lm
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, 97, n) for n in (20, 9, 13)]
+    tokens, lens, _b, s = pred._bucketed(prompts, 6)
+    bb, sp = tokens.shape[0], 32
+    pstep, _ = pred.acquire("prefill", bb, sp)
+    feeds = {"tokens": tokens[:, :sp], "lengths": lens}
+    graph = pstep(feeds, read=_clone)
+    eager = pstep.run_eager(feeds, read=_clone)
+    assert pstep.captures == 1 and pstep.captured
+    for g, e in zip(graph, eager):
+        assert torch.equal(g, e)
+
+    dstep, _ = pred.acquire("decode", bb, s)
+    slabs = pred._slabs(dstep)
+    pred._prefill(tokens, lens, s, slabs)
+    saved = [x.clone() for x in slabs]
+    results = []
+    for first in (tokens[:, 0].copy(), tokens[:, 1].copy()):
+        step_feeds = _decode_step_feeds(pred, slabs, first, lens.copy(), 1)
+        got = dstep(step_feeds, read=_clone)
+        for x, y in zip(slabs, saved):
+            x.copy_(y)
+        want = dstep.run_eager(step_feeds, read=_clone)
+        for x, y in zip(slabs, saved):
+            x.copy_(y)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        results.append(got)
+    assert dstep.captures == 1 and dstep.replays == 2
+    assert not torch.equal(results[0][1], results[1][1])   # new logits
+    assert pred.traces == 4   # two steps built, two graphs captured
+
+
+@pytest.mark.gpu
+def test_decode_graphs_replayed_on_two_streams(tiny_lm):
+    """Two captured decode steps of one bucket (two predictors: the same
+    B*H), replayed at once on two streams, give their eager functions'
+    outputs: each graph keeps K3's counters of its own, and every counter
+    ends at zero."""
+    import numpy as np
+    from paddle_tpu_torch import CUDAPlace
+    from paddle_tpu_torch.serving import decode as D
+
+    preds = [tiny_lm, D.DecodePredictor(tiny_lm.model_dir,
+                                        place=CUDAPlace(0))]
+    rng = np.random.default_rng(2)
+    runs = []
+    for pred in preds:
+        prompts = [rng.integers(1, 97, n) for n in (20, 9, 13)]
+        tokens, lens, _b, s = pred._bucketed(prompts, 6)
+        dstep, _ = pred.acquire("decode", tokens.shape[0], s)
+        slabs = pred._slabs(dstep)
+        pred._prefill(tokens, lens, s, slabs)
+        feeds = _decode_step_feeds(pred, slabs, tokens[:, 0].copy(),
+                                   lens.copy(), 1)
+        # the step appends the same row each call: its outputs repeat
+        want = dstep.run_eager(feeds, read=_clone)
+        dstep.capture()
+        runs.append((dstep, feeds, want))
+    assert runs[0][0] is not runs[1][0]
+    streams = [torch.cuda.Stream() for _ in runs]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    got = [[], []]
+    for _ in range(20):
+        for st, (dstep, feeds, _want), out in zip(streams, runs, got):
+            with torch.cuda.stream(st):
+                out.append(dstep(feeds, read=_clone))
+    torch.cuda.synchronize()
+    for (dstep, _feeds, want), outs in zip(runs, got):
+        assert dstep.captures == 1 and dstep.replays == 20
+        for out in outs:
+            assert all(torch.equal(g, w) for g, w in zip(out, want))
+        assert dstep._counters and not any(
+            c.any() for c in dstep._counters.values())
+    ptrs = [c.data_ptr() for dstep, _f, _w in runs
+            for c in dstep._counters.values()]
+    assert len(set(ptrs)) == len(ptrs)
+
+
+@pytest.mark.gpu
+def test_failed_capture_raises_and_never_runs_eagerly(card, monkeypatch):
+    """A step whose program cannot be captured (an op reads a value back
+    to the host) raises, naming the op, after its warm-up runs; it never
+    runs the program eagerly in the graph's place."""
+    import numpy as np
+    from paddle_tpu_torch import Program, layers, program_guard
+    from paddle_tpu_torch.ops import registry
+    from paddle_tpu_torch.serving.engine import Engine, GraphStep
+
+    prog = Program()
+    with program_guard(prog, Program()):
+        x = layers.data(name="x", shape=[4], dtype="float32",
+                        append_batch_size=False)
+        out = layers.elementwise_add(x, x, act="relu")
+    runs = []
+    relu = registry.KERNELS["relu"]
+
+    def syncing_relu(ctx):
+        runs.append(ctx.op.type)
+        float(ctx.input("X").sum())   # a device-to-host read
+        return relu(ctx)
+
+    monkeypatch.setitem(registry.KERNELS, "relu", syncing_relu)
+    engine = Engine(prog, feed_names=["x"], fetch_names=[out.name])
+    step = engine.graph_step("predict", [("x", (4,), torch.float32)], {},
+                             card)
+    feeds = {"x": np.arange(4, dtype=np.float32) - 1}
+    with pytest.raises(RuntimeError, match="capture failed.*relu"):
+        step(feeds)
+    assert len(runs) == GraphStep.WARMUP + 1 and not step.captured
+    with pytest.raises(RuntimeError, match="failed earlier"):
+        step(feeds)
+    assert len(runs) == GraphStep.WARMUP + 1
+    assert step.run_eager(feeds, read=lambda o: o[0].cpu().tolist()) == \
+        [0.0, 0.0, 2.0, 4.0]
+    assert len(runs) == GraphStep.WARMUP + 2

@@ -2,8 +2,9 @@
 CPU: it imports neither JAX nor the JAX package; its entry points run on
 the card unless asked for the CPU; its kernel wrappers refuse what their
 kernels do not take and never fall back; chip_smoke.py fails without a
-card; the interpreter names a failing op; and chip_smoke's main-path
-runs (training, serving) go end to end at a tiny size on the CPU."""
+card; the interpreter names a failing op; assign_value copies from the
+host once; and chip_smoke's main-path runs (training, serving) go end to
+end at a tiny size on the CPU."""
 import glob
 import inspect
 import json
@@ -43,6 +44,7 @@ def test_port_and_chip_smoke_import_no_jax():
         "import paddle_tpu_torch.kernels, paddle_tpu_torch.io\n"
         "import paddle_tpu_torch.executor, paddle_tpu_torch.optimizer\n"
         "import paddle_tpu_torch.models.transformer\n"
+        "import paddle_tpu_torch.inference, paddle_tpu_torch.serving.engine\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
@@ -63,6 +65,33 @@ def test_decode_predictor_defaults_to_the_card(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         pt.CUDAPlace(0).torch_device()
     assert pt.CPUPlace().torch_device() == torch.device("cpu")
+
+
+def test_predictor_defaults_to_the_card(monkeypatch, tmp_path):
+    """inference.Predictor with no place means CUDAPlace(0) too: without a
+    CUDA device it raises before anything is read."""
+    from paddle_tpu_torch.inference import Predictor
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Predictor(str(tmp_path))
+
+
+def test_assign_value_copies_from_the_host_once(monkeypatch):
+    """assign_value makes its tensor on an op's first run and hands the
+    same one out after, with no host copy (a copy from the host cannot be
+    captured into a CUDA graph)."""
+    prog = pt.Program()
+    with pt.program_guard(prog, pt.Program()):
+        out = layers.assign(np.arange(6, dtype=np.int64).reshape(2, 3))
+    cpu = torch.device("cpu")
+    with torch.inference_mode():
+        first = run_block(prog.global_block(), {}, cpu)[out.name]
+    assert not first.is_inference()
+    monkeypatch.setattr(torch, "from_numpy", None)   # any call would fail
+    again = run_block(prog.global_block(), {}, cpu)[out.name]
+    assert again is first
+    np.testing.assert_array_equal(again.numpy(), np.arange(6).reshape(2, 3))
 
 
 def test_executor_defaults_to_the_card(monkeypatch):
@@ -287,7 +316,8 @@ def test_chip_smoke_slice_rehearses_on_cpu(tmp_path):
     kernels' plain versions run and no launch is counted: the training
     phase (startup, steps, the kernel, plain, plain-backward,
     fused-backward and BHTD steps from one saved state) and the serving slice (export, load,
-    generate, the teacher-forced logits check)."""
+    generate, the teacher-forced logits check, the engine line's eager
+    and graph-step generates, the predictor line)."""
     sys.path.insert(0, ROOT)
     try:
         import chip_smoke
@@ -318,7 +348,37 @@ def test_chip_smoke_slice_rehearses_on_cpu(tmp_path):
     assert res["prefill_calls"] == 1 and res["decode_steps"] == 5
     assert res["replay_matches_generate"] and res["logits_finite"]
     assert res["logits_max_abs_err"] == 0.0
-    assert not os.path.exists(os.path.join(str(tmp_path), "model"))
+    # the engine line: eager and graph-step generates in turns, the same
+    # tokens; the first graph-step generate built both steps, no later
+    # one built or captured (nothing is captured on the CPU)
+    eng = res["engine"]
+    assert eng["tokens_equal"]
+    assert eng["traces"] == {"after_eager": 2,
+                             "after_first_graph_generate": 2,
+                             "after_timed": 2, "after_main_path": 2}
+    assert res["main_path"] == {"tokens_equal": True,
+                                "captures_or_builds": 0,
+                                "prefill_calls": 1, "decode_steps": 5}
+    assert len(eng["eager"]["decode_ms_per_token"]) == 2
+    assert len(eng["graph"]["decode_ms_per_token"]) == 2
+    # memory over buckets: the steps of each bucket stay until the cache
+    # is bounded, which evicts the least recently used and holds the rest
+    # under the bound
+    mem = eng["memory"]
+    assert [m["bucket"] for m in mem["unbounded"]] == \
+        ["slice", "half_quarter", "quarter_half"]
+    assert mem["unbounded"][0]["step_cache_gb"] == mem["slice_step_gb"]
+    assert mem["unbounded"][-1]["step_cache_gb"] > mem["slice_step_gb"]
+    assert mem["bounded"][-1]["evictions"] > 0
+    assert all(m["step_cache_gb"] <= mem["bound_gb"]
+               for m in mem["bounded"])
+    # the predictor line: the prefill export at the slice's bucket
+    pr = res["predictor"]
+    assert pr["export"] == [4, 32]
+    assert pr["graph_vs_eager_max_abs"] == 0.0
+    assert pr["vs_decode_prefill_equal"]
+    for name in ("model", "predictor_model"):
+        assert not os.path.exists(os.path.join(str(tmp_path), name))
 
 
 def test_chip_smoke_train_amp_rehearses_on_cpu(tmp_path):
