@@ -290,6 +290,11 @@ WARM_STEPS, TIMED_STEPS = 2, 5
 # bench.py's run_loop timing (bench.py:_timed_loop, with its WARMUP and
 # STEPS): one run_loop(3) call, then run_loop(12) and run_loop(24)
 LOOP_WARMUP, LOOP_STEPS = 3, 12
+# train_files: the DataLoader's worker processes (tools/bench_dataloader.py's
+# quick_metric count), and the depth of the window checked without
+# double_buffer (enough to hold a window of batches; no third full-size
+# capture)
+FILES_LOADER_WORKERS, FILES_WINDOW_LAYERS = 2, 2
 
 
 def fail(msg):
@@ -2118,10 +2123,12 @@ def timed_loop(run_loop, warmup, steps):
     return dt * 1e3, loss, t1, t2
 
 
-def build_train_reader(config, batch, seq, lr, seed, amp_level="O2"):
+def build_train_reader(config, batch, seq, lr, seed, amp_level="O2",
+                       make_reader=None):
     """build_train's program fed by a reader instead of a feed dict:
-    py_reader (double-buffered) -> read_file -> transformer_lm; the same
-    parameter names. Returns (main, startup, loss, reader)."""
+    py_reader (double-buffered), or the reader variable ``make_reader()``
+    builds, -> read_file -> transformer_lm; the same parameter names.
+    Returns (main, startup, loss, reader)."""
     from paddle_tpu_torch import (Program, layers, optimizer, program_guard,
                                   unique_name)
     from paddle_tpu_torch.models import transformer
@@ -2129,9 +2136,12 @@ def build_train_reader(config, batch, seq, lr, seed, amp_level="O2"):
     main, startup = Program(), Program()
     main.random_seed = startup.random_seed = seed
     with program_guard(main, startup), unique_name.guard():
-        reader = layers.py_reader(capacity=4, shapes=[(batch, seq)] * 2,
-                                  dtypes=["int64", "int64"],
-                                  name="train_reader")
+        if make_reader is None:
+            reader = layers.py_reader(capacity=4, shapes=[(batch, seq)] * 2,
+                                      dtypes=["int64", "int64"],
+                                      name="train_reader")
+        else:
+            reader = make_reader()
         ids, labels = layers.read_file(reader)
         loss, _ = transformer.transformer_lm(ids, labels, **config)
         optimizer.Adam(learning_rate=lr).minimize(loss)
@@ -2300,6 +2310,361 @@ def run_train_loop(config, batch, seq, lr, warmup, steps, seed, place,
 
 
 # ---------------------------------------------------------------------------
+# train_files: the LM trained from recordio files and from the DataLoader
+# ---------------------------------------------------------------------------
+
+
+class FileSamples:
+    """The samples of recordio files, one pickled (ids, labels) tuple a
+    record, file after file: the DataLoader's source (module-level, so its
+    worker processes can unpickle it; cheap to iterate, as a source
+    should be)."""
+
+    def __init__(self, paths):
+        self.paths = list(paths)
+
+    def __call__(self):
+        from paddle_tpu_torch import recordio_sample_reader
+
+        for path in self.paths:
+            yield from recordio_sample_reader(path, prefetch=False)()
+
+
+def _reader_epoch(exe, scope, program, loss, reader, steps, saved, restore,
+                  state, prefetch):
+    """One epoch of ``reader`` from ``saved``: 2 run_loop(steps) windows,
+    then a third call that must raise EOFException. Returns ms per
+    window, ms per step, the host's pull ms, and each window's (loss,
+    state())."""
+    from paddle_tpu_torch import EOFException
+
+    restore(saved)
+    got = {"ms": [], "windows": []}
+    pull0 = exe.reader_pull_ms
+    with env_set("PADDLE_TPU_READER_PREFETCH", "1" if prefetch else "0"):
+        reader.reset()
+        reader.start()
+        for _ in range(2):
+            t1 = time.perf_counter()
+            out = exe.run_loop(program, fetch_list=[loss], steps=steps,
+                               scope=scope, return_numpy=False)
+            float(out[0])
+            got["ms"].append((time.perf_counter() - t1) * 1e3)
+            got["windows"].append((out[0], state()))
+        try:
+            exe.run_loop(program, fetch_list=[loss], steps=steps,
+                         scope=scope, return_numpy=False)
+            got["eof"] = False
+        except EOFException:
+            got["eof"] = True
+    got["pull_ms"] = exe.reader_pull_ms - pull0
+    got["ms_per_step"] = sum(got["ms"]) / (2 * steps)
+    got["losses"] = [float(w[0]) for w in got["windows"]]
+    return got
+
+
+def run_train_files(config, batch, seq, lr, steps, seed, place, workdir):
+    """The LM (bench.py's LM phase, bf16 O2) trained by run_loop(steps)
+    from files on disk. 2 windows x ``steps`` batches x ``batch`` samples
+    of (ids[seq], labels[seq]) int64 from ``seed`` are written with
+    recordio_convert into two recordio files; the program then reads them
+    through open_files -> batch -> double_buffer -> read_file, windows
+    trained with the prefetch on and off (ms per step, the host's pull
+    ms), and through a data_loader (FILES_LOADER_WORKERS processes, ordered,
+    double-buffered, decorate_sample_reader over the files; its stats()).
+    Gates: each window's loss and parameters equal a run_loop(steps) over
+    the same batches as per_step_feeds from one saved state
+    (_same_steps), and the third call raises EOFException, on both
+    paths. The main path's run: one files window under torch.profiler,
+    the host counts zeroed just before it (they must stay 0; the profiler
+    counts the bf16 kernels inside the replays). Then a window of
+    open_files -> batch -> read_file (no double buffer, so the window
+    holds ``steps`` batches that BatchReader handed out) at
+    FILES_WINDOW_LAYERS layers against per_step_feeds. Runs on any place
+    (the CPU tests rehearse it at a tiny size)."""
+    import torch
+    from paddle_tpu_torch import Executor, Scope, layers, recordio_convert
+    from paddle_tpu_torch.runtime import build as rt_build
+    from paddle_tpu_torch.runtime.recordio import native_available
+
+    if not native_available():
+        fail("the runtime library (runtime.cc) did not build: %s"
+             % rt_build.build_error())
+    keys = BF16_KERNELS
+    rng = np.random.default_rng(seed + 5)
+    data = rng.integers(0, config["vocab_size"], (2 * steps * batch, 2, seq))
+    paths = [os.path.join(workdir, "train_%d.recordio" % i) for i in (0, 1)]
+    t0 = time.perf_counter()
+    half = steps * batch
+    for path, part in zip(paths, (data[:half], data[half:])):
+        recordio_convert(lambda part=part: ((s[0], s[1]) for s in part),
+                         path)
+    res = {"phase": "train_files", "amp_level": "O2", "config": config,
+           "batch": batch, "seq": seq, "lr": lr, "steps": steps,
+           "native_runtime": native_available(),
+           "files_mb": sum(os.path.getsize(p) for p in paths) / 1e6,
+           "write_ms": (time.perf_counter() - t0) * 1e3}
+    # the true batches: (window, step, batch, 2, seq)
+    windows = data.reshape(2, steps, batch, 2, seq)
+
+    main, startup, loss = build_train(config, batch, seq, lr, seed, "O2")
+    exe, scope = Executor(place), Scope()
+    exe.run(startup, scope=scope)
+    t = _Trainer(exe, scope, main, loss, config, batch, seq, seed, keys,
+                 workdir)
+    saved = t.save()
+
+    def state():
+        return {n: scope.find_var(n).clone() for n in t.params}
+
+    def per_step(program, lossvar, win, on_scope):
+        """run_loop(steps) over window ``win``'s true batches as
+        per_step_feeds: the loss."""
+        stacked = {"ids": torch.from_numpy(np.ascontiguousarray(
+                       windows[win, :, :, 0])),
+                   "labels": torch.from_numpy(np.ascontiguousarray(
+                       windows[win, :, :, 1]))}
+        return exe.run_loop(program, feed=stacked, fetch_list=[lossvar],
+                            steps=steps, scope=on_scope, return_numpy=False,
+                            per_step_feeds=["ids", "labels"])[0]
+
+    t.restore(saved)
+    want = [(per_step(main, loss, w, scope), state()) for w in range(2)]
+
+    def gates(epoch):
+        return [_same_steps(got, ref, lr)
+                for got, ref in zip(epoch["windows"], want)]
+
+    # open_files -> batch -> double_buffer -> read_file
+    fmain, _, floss, freader = build_train_reader(
+        config, batch, seq, lr, seed, make_reader=lambda: layers.double_buffer(
+            layers.batch(layers.open_files(paths, [(seq,), (seq,)],
+                                           ["int64", "int64"]), batch)))
+    epoch_args = (exe, scope, fmain, floss, freader, steps, saved, t.restore,
+                  state)
+    _reader_epoch(*epoch_args, prefetch=True)   # builds and captures
+    on = _reader_epoch(*epoch_args, prefetch=True)
+    off = _reader_epoch(*epoch_args, prefetch=False)
+    files = {"prefetch_on": {k: on[k] for k in ("ms", "ms_per_step",
+                                                 "pull_ms", "losses")},
+             "prefetch_off": {k: off[k] for k in ("ms", "ms_per_step",
+                                                   "pull_ms", "losses")},
+             "eof_on_third_call": on["eof"] and off["eof"],
+             "on_equals_off": on["losses"] == off["losses"],
+             "windows_vs_per_step_feeds": gates(on)}
+    del on, off
+    # the main path's run: one files window, counts zeroed just before
+    t.restore(saved)
+    freader.reset()
+    freader.start()
+    _launch_counts(reset=True)
+    if t.cuda:
+        prof = profile_call(lambda: float(exe.run_loop(
+            fmain, fetch_list=[floss], steps=steps, scope=scope,
+            return_numpy=False)[0]), os.path.join(workdir,
+                                                  "train_files_ops.txt"))
+        res["profile"] = prof
+        res["launches"] = {k: prof["kernel_launches"].get(
+            KERNEL_SYMBOLS[k], 0) for k in keys}
+        res["graph_launches"] = prof["host_launch_calls"]["graph_launches"]
+    else:
+        exe.run_loop(fmain, fetch_list=[floss], steps=steps, scope=scope)
+        res["launches"] = dict.fromkeys(keys, 0)
+        res["graph_launches"] = 0
+    res["host_launches"] = _launch_counts(keys=keys)
+    res["files"] = files
+
+    # a data_loader over the same files
+    lmain, _, lloss, loader = build_train_reader(
+        config, batch, seq, lr, seed, make_reader=lambda: layers.data_loader(
+            capacity=8, shapes=[(-1, seq), (-1, seq)],
+            dtypes=["int64", "int64"], num_workers=FILES_LOADER_WORKERS,
+            use_double_buffer=True, name="train_loader"))
+    loader.decorate_sample_reader(FileSamples(paths), batch_size=batch)
+    holder = loader._reader_holder.inner
+    try:
+        epoch_args = (exe, scope, lmain, lloss, loader, steps, saved,
+                      t.restore, state)
+        _reader_epoch(*epoch_args, prefetch=True)   # builds and captures
+        st0 = holder.stats()
+        got = _reader_epoch(*epoch_args, prefetch=True)
+        st = holder.stats()
+    finally:
+        loader.close()
+    wall = st["wall_s"] - st0["wall_s"]
+    res["loader"] = {
+        "workers": FILES_LOADER_WORKERS, "capacity": holder.capacity,
+        "ms": got["ms"], "ms_per_step": got["ms_per_step"],
+        "pull_ms": got["pull_ms"], "losses": got["losses"],
+        "eof_on_third_call": got["eof"],
+        "windows_vs_per_step_feeds": gates(got),
+        "batches": st["batches"] - st0["batches"],
+        "shm_batches": st["shm_batches"] - st0["shm_batches"],
+        "pickle_batches": st["pickle_batches"] - st0["pickle_batches"],
+        "blocked_share": (st["blocked_s"] - st0["blocked_s"]) / wall,
+        "worker_utilization": (st["worker_busy_s"] - st0["worker_busy_s"])
+        / (FILES_LOADER_WORKERS * wall)}
+    del got, want
+
+    # a window of batches BatchReader handed out, held by the executor
+    # until stacked: open_files -> batch -> read_file, at FILES_WINDOW_LAYERS
+    small = dict(config, n_layer=FILES_WINDOW_LAYERS)
+    smain, sstart, sloss = build_train(small, batch, seq, lr, seed, "O2")
+    wmain, _, wloss, wreader = build_train_reader(
+        small, batch, seq, lr, seed, make_reader=lambda: layers.batch(
+            layers.open_files(paths, [(seq,), (seq,)], ["int64", "int64"]),
+            batch))
+    sscope = Scope()
+    exe.run(sstart, scope=sscope)
+    names = [p.name for p in smain.all_parameters()]
+    ssaved = {v.name: sscope.find_var(v.name).clone()
+              for v in smain.list_vars() if v.persistable}
+
+    def small_state():
+        return {n: sscope.find_var(n).clone() for n in names}
+
+    wreader.start()
+    out = exe.run_loop(wmain, fetch_list=[wloss], steps=steps, scope=sscope,
+                       return_numpy=False)
+    held = (out[0], small_state())
+    for name, val in ssaved.items():
+        sscope.set_var(name, val.clone())
+    ref = (per_step(smain, sloss, 0, sscope), small_state())
+    res["window_without_double_buffer"] = {
+        "n_layer": FILES_WINDOW_LAYERS,
+        "vs_per_step_feeds": _same_steps(held, ref, lr)}
+    res["step_cache"] = t.cache_line()
+    exe.close()
+    for path in paths:
+        os.remove(path)
+    if not (files["eof_on_third_call"] and res["loader"]["eof_on_third_call"]):
+        fail("train_files: the third window did not raise EOFException")
+    checks = (files["windows_vs_per_step_feeds"]
+              + res["loader"]["windows_vs_per_step_feeds"]
+              + [res["window_without_double_buffer"]["vs_per_step_feeds"]])
+    if not (all(c["ok"] for c in checks) and files["on_equals_off"]):
+        fail("train_files: a window differs from per_step_feeds: %s"
+             % json.dumps({k: res[k] for k in ("files", "loader",
+                                                "window_without_double_buffer")}))
+    return res
+
+
+class RawSource:
+    """tools/bench_dataloader.py's source: (raw_bytes, label) samples,
+    cheap to iterate (4 distinct blobs, cycled)."""
+
+    def __init__(self, n, nbytes, seed=0):
+        r = np.random.RandomState(seed)
+        self.blobs = [r.randint(0, 256, nbytes).astype(np.uint8).tobytes()
+                      for _ in range(4)]
+        self.n = n
+
+    def __call__(self):
+        for i in range(self.n):
+            yield (self.blobs[i % len(self.blobs)], i)
+
+
+class HeavyDecode:
+    """tools/bench_dataloader.py's GIL-holding per-sample decode: a Python
+    loop over every 17th byte, then the float conversion."""
+
+    def __init__(self, stride=17):
+        self.stride = stride
+
+    def __call__(self, sample):
+        raw, label = sample
+        a = np.frombuffer(raw, np.uint8).astype(np.float32)
+        acc = 0.0
+        for v in a[::self.stride]:
+            acc = acc * 0.9999 + float(v)
+        img = a * (1.0 / 127.5) - 1.0
+        img[0] = acc * 1e-9
+        return (img, np.int64(label))
+
+
+def _pipeline_threads(n_batches, batch, nbytes, workers):
+    """xmap_readers threads + batch + stacking on the consumer: batches/s
+    from the first delivered batch on."""
+    from paddle_tpu_torch import reader as rd
+
+    mapped = rd.xmap_readers(HeavyDecode(), RawSource(n_batches * batch,
+                                                      nbytes),
+                             workers, max(2 * workers, 4), order=True)
+    n, t0 = 0, None
+    for minibatch in rd.batch(mapped, batch, drop_last=True)():
+        np.stack([s[0] for s in minibatch])
+        np.stack([s[1] for s in minibatch])
+        if t0 is None:
+            t0 = time.perf_counter()
+            continue
+        n += 1
+    if n != n_batches - 1:
+        fail("the threaded pipeline gave %d batches, not %d"
+             % (n + 1, n_batches))
+    return n / (time.perf_counter() - t0)
+
+
+def _pipeline_process(n_batches, batch, nbytes, workers, stats_out=None):
+    """The port's DataLoader: worker processes, shared-memory transport,
+    batches arrive stacked; batches/s from the first delivered batch."""
+    from paddle_tpu_torch.io.dataloader import DataLoader
+
+    dl = DataLoader(["img", "label"], None, None, num_workers=workers,
+                    capacity=max(8, 2 * workers),
+                    slot_bytes=max(4 << 20, 8 * batch * nbytes))
+    dl.decorate_sample_reader(RawSource(n_batches * batch, nbytes),
+                              batch_size=batch, drop_last=True,
+                              mapper=HeavyDecode())
+    try:
+        dl.start()
+        n, t0 = 0, None
+        for _feed in dl:
+            if t0 is None:
+                t0 = time.perf_counter()
+                continue
+            n += 1
+        dt = time.perf_counter() - t0
+        if n != n_batches - 1:
+            fail("the DataLoader gave %d batches, not %d" % (n + 1,
+                                                              n_batches))
+        if stats_out is not None:
+            stats_out.update(dl.stats())
+        return n / dt
+    finally:
+        dl.close()
+
+
+def input_pipeline(workers=2, sample_kb=16, batch=16, n_batches=48,
+                   rounds=3):
+    """The host input pipeline on tools/bench_dataloader.py:180's
+    quick_metric workload (2 workers, 16 KB samples, batch 16, 48
+    batches, 3 rounds, medians): the port's DataLoader against the
+    threaded path (xmap_readers), in turns, after one warm DataLoader
+    epoch (the fork server's start)."""
+    nbytes = int(sample_kb * 1024)
+    _pipeline_process(max(2, n_batches // 8), batch, nbytes, workers)
+    stats, t_rates, p_rates = {}, [], []
+    for _ in range(rounds):
+        t_rates.append(_pipeline_threads(n_batches, batch, nbytes, workers))
+        p_rates.append(_pipeline_process(n_batches, batch, nbytes, workers,
+                                         stats_out=stats))
+    t_rate, p_rate = float(np.median(t_rates)), float(np.median(p_rates))
+    wall = max(stats.get("wall_s", 0.0), 1e-9)
+    return {"phase": "input_pipeline", "workers": workers,
+            "sample_kb": sample_kb, "batch": batch, "batches": n_batches,
+            "rounds": rounds, "batches_per_s": p_rate,
+            "samples_per_s": p_rate * batch,
+            "threads_batches_per_s": t_rate,
+            "speedup_vs_threads": p_rate / max(t_rate, 1e-9),
+            "process_rounds": p_rates, "threads_rounds": t_rates,
+            "transport": {"shm": stats.get("shm_batches"),
+                          "pickle": stats.get("pickle_batches")},
+            "consumer_blocked_share": stats.get("blocked_s", 0.0) / wall,
+            "worker_utilization": stats.get("worker_busy_s", 0.0)
+            / (workers * wall)}
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -2401,11 +2766,21 @@ def main(argv=None):
         return run_k4_ablations(torch, dev, args.seed, args.rounds)
     t0 = time.perf_counter()
     built = build_all()
+    build_wall_s = time.perf_counter() - t0
+    # the host runtime (recordio, prefetch, channels): g++, on first use
+    from paddle_tpu_torch.runtime import build as rt_build
+    from paddle_tpu_torch.runtime.recordio import native_available
+
+    if not native_available():
+        fail("the runtime library (runtime.cc) did not build: %s"
+             % rt_build.build_error())
     emit({"phase": "device", "nvidia_smi": smi,
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
-          "build_s": built, "build_wall_s": time.perf_counter() - t0})
+          "build_s": built, "build_wall_s": build_wall_s,
+          "runtime_build_s": rt_build.build_seconds,
+          "runtime_library": os.path.relpath(rt_build.lib_path(), _ROOT)})
 
     # prompt lengths of the slice, drawn first: K3 is timed at the
     # lengths of the slice's last decode step
@@ -2641,6 +3016,22 @@ def main(argv=None):
                 tl["graph_launches"], want_loop, LOOP_STEPS))
     torch.cuda.empty_cache()
 
+    tf = run_train_files(TRAIN_CONFIG, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR,
+                         LOOP_STEPS, args.seed, CUDAPlace(0), workdir)
+    tf["gpu"] = smi
+    emit(tf)
+    want_files = {k: want_loop[k] for k in BF16_KERNELS}
+    if tf["launches"] != want_files or any(tf["host_launches"].values()) \
+            or tf["graph_launches"] != LOOP_STEPS:
+        fail("the files window launched %s (profiler), %s from the host and "
+             "%d graphs; expected %s, none and %d"
+             % (tf["launches"], tf["host_launches"], tf["graph_launches"],
+                want_files, LOOP_STEPS))
+    torch.cuda.empty_cache()
+    ip = input_pipeline()
+    ip["gpu"] = smi
+    emit(ip)
+
     sl = run_slice(FULL_CONFIG, prompt_lens, MAX_NEW, args.seed,
                    CUDAPlace(0), workdir)
     engine, predictor = sl.pop("engine"), sl.pop("predictor")
@@ -2737,7 +3128,8 @@ def main(argv=None):
               "paddle_tpu/ops/attention.py:172",
               {"train_amp_step": amp_step["K1-bf16"],
                "train_amp_o1_step": amp_o1["K1-bf16"],
-               "train_loop": loop["K1-bf16"]},
+               "train_loop": loop["K1-bf16"],
+               "train_files": tf["launches"]["K1-bf16"]},
               k1b["max_abs_err"], k1b["ms"], k1b["plain_ms"],
               (k1b["bound_ms"], k1b["bound_by"]), k1b["library_ms"],
               plain_err=k1b["plain_err"], err_ratio=k1b["err_ratio"],
@@ -2752,7 +3144,8 @@ def main(argv=None):
               "paddle_tpu/ops/attention.py:216",
               {"train_amp_step": amp_step["K2-dq-bf16"],
                "train_amp_o1_step": amp_o1["K2-dq-bf16"],
-               "train_loop": loop["K2-dq-bf16"]},
+               "train_loop": loop["K2-dq-bf16"],
+               "train_files": tf["launches"]["K2-dq-bf16"]},
               bwdb["K2_dq_err"], bwdb["dq_ms"], bwdb["plain_ms"],
               (bwdb["dq_bound_ms"], bwdb["dq_bound_by"]), None,
               err_ratio=bwdb["K2_dq_err_ratio"],
@@ -2762,7 +3155,8 @@ def main(argv=None):
               "paddle_tpu/ops/attention.py:246",
               {"train_amp_step": amp_step["K2-dkv-bf16"],
                "train_amp_o1_step": amp_o1["K2-dkv-bf16"],
-               "train_loop": loop["K2-dkv-bf16"]},
+               "train_loop": loop["K2-dkv-bf16"],
+               "train_files": tf["launches"]["K2-dkv-bf16"]},
               max(bwdb["K2_dk_err"], bwdb["K2_dv_err"]), bwdb["dkv_ms"],
               bwdb["plain_ms"], (bwdb["dkv_bound_ms"], bwdb["dkv_bound_by"]),
               None, err_ratio=max(bwdb["K2_dk_err_ratio"],

@@ -14,15 +14,23 @@ their steps captured once per bucket as CUDA graphs and replayed
 a program built with ``optimizer.Adam(...).minimize``, in fp32 or bf16
 AMP, the step captured once as a CUDA graph and replayed, fed by a feed
 dict or by the reader ops: ``layers.py_reader`` -> ``batch`` ->
-``double_buffer`` -> ``read_file``) through K1 and the flash-attention
-backward kernels (K2, or K4 with ``PADDLE_TPU_FLASH_FUSED_BWD=1``).
+``double_buffer`` -> ``read_file``, or from files on disk:
+``recordio_convert`` / ``recordio_writer`` -> ``layers.open_files`` ->
+``batch``, or a multiprocess ``layers.data_loader``) through K1 and the
+flash-attention backward kernels (K2, or K4 with
+``PADDLE_TPU_FLASH_FUSED_BWD=1``). The input path's host runtime
+(runtime/runtime.cc: recordio, prefetch, channels) is C++, built with g++
+on first use.
 """
 from . import (backward, clip, framework, inference, initializer, io,
-               layers, optimizer, reader, regularizer)
+               layers, optimizer, reader, recordio_writer, regularizer)
 from .backward import append_backward
+from .data_feeder import DataFeeder
 from .executor import Executor
+from .io.dataloader import DataLoader
 from .io.reader import EOFException
 from .reader import batch
+from .runtime.recordio import recordio_convert, recordio_sample_reader
 from .framework import (
     CPUPlace,
     CUDAPlace,
@@ -38,10 +46,11 @@ from .framework import (
 from .param_attr import ParamAttr
 
 __all__ = [
-    "CPUPlace", "CUDAPlace", "EOFException", "Executor", "ParamAttr",
-    "Program", "Scope", "append_backward", "backward", "batch", "clip",
-    "default_main_program", "default_startup_program", "framework",
-    "global_scope", "inference", "initializer", "io", "layers",
-    "optimizer", "program_guard", "reader", "regularizer", "scope_guard",
-    "unique_name",
+    "CPUPlace", "CUDAPlace", "DataFeeder", "DataLoader", "EOFException",
+    "Executor", "ParamAttr", "Program", "Scope", "append_backward",
+    "backward", "batch", "clip", "default_main_program",
+    "default_startup_program", "framework", "global_scope", "inference",
+    "initializer", "io", "layers", "optimizer", "program_guard", "reader",
+    "recordio_convert", "recordio_sample_reader", "recordio_writer",
+    "regularizer", "scope_guard", "unique_name",
 ]

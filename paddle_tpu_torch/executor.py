@@ -543,6 +543,7 @@ class Executor:
                     cur.wait_event(slot["ready"])
                     for v in window.values():
                         v.record_stream(cur)
+                slot = None
             else:
                 op_windows, k, eof_exc = self._pull_reader_window(
                     gb, read_ops, steps)
@@ -550,6 +551,9 @@ class Executor:
                     raise eof_exc  # exhausted before the window started
                 window = self._to_device(
                     self._stack_reader_window(program, op_windows, k))
+                # the stack copied the batches: a DataLoader's slots go
+                # back to its ring before the steps run
+                del op_windows
             per_step.update(window)
         per_step = self._to_device(per_step)
         fetches = self._run_steps(program, scope, feeds, per_step, k,
@@ -569,14 +573,19 @@ class Executor:
             self._read_ops[program] = entry
         return entry[1]
 
-    @staticmethod
-    def _holder_for(gb, op):
+    def _holder_for(self, gb, op):
+        """The read op's pipeline, told this executor's device (a
+        ``double_buffer`` without a place stages there)."""
         rvar = gb._find_var_recursive(op.input("Reader")[0])
         holder = getattr(rvar, "_reader_holder", None)
         if holder is None:
             raise RuntimeError(
                 "reader variable %r has no bound pipeline; build it "
                 "with layers.py_reader" % op.input("Reader")[0])
+        # a stage that is only an object with next() takes no device
+        bind = getattr(holder, "bind_device", None)
+        if bind is not None:
+            bind(self.device)
         return holder
 
     @staticmethod
@@ -675,6 +684,14 @@ class Executor:
             feeds, ready = None, None
             if nk:
                 feeds = self._stack_reader_window(program, nwin, nk)
+                # keep, for a flush, each step's slice of the stacked
+                # window (cast, on the host or where the reader staged
+                # it) in place of the pulled batches: the window then
+                # holds none of the reader's memory (a DataLoader's slots)
+                nwin = [(op, holder, [{o: feeds[o][i]
+                                       for o in op.output("Out")}
+                                      for i in range(nk)], epoch)
+                        for op, holder, _b, epoch in nwin]
                 if self.device.type == "cuda":
                     if self._stage_stream is None:
                         self._stage_stream = torch.cuda.Stream(self.device)

@@ -148,3 +148,11 @@ def load_inference_model(
             scope.set_var(name, val)
     fetch_targets = [program.global_block().var(n) for n in meta["fetch_names"]]
     return program, list(meta["feed_names"]), fetch_targets
+
+
+# reader-op pipeline (py_reader / double_buffer / recordio readers)
+from . import reader  # noqa: E402,F401
+from .reader import EOFException  # noqa: E402,F401
+# multiprocess input fast path (shared-memory zero-copy batches)
+from . import dataloader  # noqa: E402,F401
+from .dataloader import DataLoader  # noqa: E402,F401

@@ -1,20 +1,21 @@
 """Reader-op data pipeline: Program-pulled batches (counterpart of
 paddle_tpu/io/reader.py; reference: python/paddle/fluid/layers/io.py
-py_reader, double_buffer, and paddle/fluid/operators/reader/*).
+py_reader, double_buffer, open_files, open_recordio_file, and
+paddle/fluid/operators/reader/*).
 
 - A *reader* is a host-side pipeline stage (``ReaderBase.next()`` ->
-  ``{var_name: array}``). ``BatchReader`` stacks samples in Python: the
-  JAX package's own branch where its native staging arena is missing
-  (``native_available()`` false). ``DoubleBufferReader`` stages the next
-  batches onto the device from a background thread.
+  ``{var_name: array}``). ``RecordIOFilesReader`` reads pickled samples
+  from recordio files through the C++ ``PrefetchReader`` (runtime/);
+  ``BatchReader`` gathers samples into batches with the C++ threaded
+  ``batch_assemble`` into memory of the batch's own, so a batch that is
+  held is never written again; ``DoubleBufferReader`` stages the next
+  batches onto the device of the Executor that pulls it, from a
+  background thread. The multiprocess ``DataLoader`` is io/dataloader.py.
 - In the Program a reader appears as a reader Variable and a ``read`` op
   whose outputs are the data Variables. ``Executor.run`` pulls the next
   batch and feeds it to the step; ``run_loop`` pulls a window of them.
   Exhaustion raises ``EOFException``, the reference's
   ``fluid.core.EOFException`` protocol (catch, then ``reader.reset()``).
-
-Not ported yet: ``RecordIOFilesReader`` and the multiprocess
-``DataLoader`` (io/dataloader.py in the JAX package).
 """
 from __future__ import annotations
 
@@ -25,9 +26,11 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..runtime.recordio import batch_assemble as _batch_assemble
+
 __all__ = ["EOFException", "ReaderBase", "PyReader", "BatchReader",
-           "DoubleBufferReader", "ShuffleReader", "RandomDataGenerator",
-           "PreprocessReader"]
+           "RecordIOFilesReader", "DoubleBufferReader", "ShuffleReader",
+           "RandomDataGenerator", "PreprocessReader"]
 
 
 class EOFException(Exception):
@@ -57,6 +60,14 @@ class ReaderBase:
 
     def close(self):
         pass
+
+    def bind_device(self, device: torch.device):
+        """Told by the Executor that pulls this reader which device it runs
+        on; a stage that stages onto a device (``DoubleBufferReader``
+        without a place) stages there. Passed down the pipeline."""
+        inner = getattr(self, "inner", None)
+        if inner is not None:
+            inner.bind_device(device)
 
 
 class _PumpedReader(ReaderBase):
@@ -144,10 +155,12 @@ class PyReader(_PumpedReader):
 
     _eof_msg = "py_reader exhausted"
 
-    def __init__(self, var_names, shapes, dtypes, capacity: int = 64):
+    def __init__(self, var_names, shapes, dtypes, capacity: int = 64,
+                 feeder=None):
         super().__init__(var_names, capacity)
         self.shapes = shapes
         self.dtypes = dtypes
+        self._feeder = feeder  # DataFeeder for sample-tuple assembly
         self._source: Optional[Callable] = None
         self._tensor_source = False
 
@@ -166,6 +179,8 @@ class PyReader(_PumpedReader):
     def _assemble(self, item):
         if self._tensor_source:
             return {n: np.asarray(a) for n, a in zip(self.var_names, item)}
+        if self._feeder is not None:
+            return self._feeder.feed(item)
         # paddle.batch convention: item is a list of per-sample tuples;
         # stack each slot into one batch array, cast to the declared dtype
         feed = {}
@@ -201,10 +216,74 @@ class PyReader(_PumpedReader):
         self._teardown()
 
 
+class RecordIOFilesReader(ReaderBase):
+    """Sample-level reader over recordio files through the C++
+    PrefetchReader, one per file in turn (reference open_recordio_file /
+    open_files + operators/reader/create_recordio_file_reader_op.cc).
+    Each record is one pickled sample tuple (``recordio_convert``)."""
+
+    def __init__(self, filenames, var_names, shapes, dtypes,
+                 prefetch_capacity: int = 256):
+        super().__init__(var_names)
+        self.shapes = [list(s) for s in shapes]
+        self.dtypes = list(dtypes)
+        from ..runtime import recordio as rio
+
+        self._rio = rio
+        self.filenames = ([filenames] if isinstance(filenames, str)
+                          else list(filenames))
+        self.capacity = prefetch_capacity
+        self._iter = None
+        # after EOF the reader stays exhausted until reset() — next() must
+        # NOT silently begin a new pass (the executor polls next() per
+        # step; auto-restart would turn one epoch into an endless stream)
+        self._exhausted = False
+
+    def _make_iter(self):
+        import pickle
+
+        def it():
+            for path in self.filenames:
+                src = self._rio.PrefetchReader(path, self.capacity)
+                try:
+                    for rec in src:
+                        yield pickle.loads(rec)
+                finally:
+                    src.close()
+
+        return it()
+
+    def start(self):
+        if self._iter is None and not self._exhausted:
+            self._iter = self._make_iter()
+
+    def next(self):
+        if self._exhausted:
+            raise EOFException("recordio files exhausted (call reset())")
+        if self._iter is None:
+            self.start()
+        try:
+            sample = next(self._iter)
+        except StopIteration:
+            self._iter = None
+            self._exhausted = True
+            raise EOFException("recordio files exhausted") from None
+        return {n: np.asarray(a) for n, a in zip(self.var_names, sample)}
+
+    def reset(self):
+        self._iter = None
+        self._exhausted = False
+
+
 class BatchReader(ReaderBase):
     """Assemble per-sample dicts from an inner reader into batches
-    (reference layers/io.py:batch -> create_batch_reader op), stacked in
-    Python: the JAX package's branch without its native staging arena."""
+    (reference layers/io.py:batch -> create_batch_reader op). Each batch
+    array is allocated for that batch and filled by the C++ threaded
+    gather (``batch_assemble``; a Python row loop for payloads under its
+    1 MiB threshold or where the runtime is not built), so a batch stays
+    as it was handed out for as long as anyone holds it. (The JAX
+    package's native branch assembles into 4 rotating staging arenas, so
+    there a batch held past 4 more is overwritten.)"""
 
     def __init__(self, inner: ReaderBase, batch_size: int, drop_last=True):
         super().__init__(inner.var_names)
@@ -218,8 +297,16 @@ class BatchReader(ReaderBase):
 
     @staticmethod
     def _stack(rows: List[Dict[str, np.ndarray]]):
-        return {name: np.stack([np.asarray(r[name]) for r in rows])
-                for name in rows[0]}
+        out = {}
+        for name in rows[0]:
+            cols = [np.asarray(r[name]) for r in rows]
+            first = cols[0]
+            dst = np.empty((len(rows),) + first.shape, first.dtype)
+            if not _batch_assemble(cols, dst):
+                for i, c in enumerate(cols):
+                    dst[i] = c
+            out[name] = dst
+        return out
 
     def start(self):
         self.inner.start()
@@ -251,9 +338,11 @@ class DoubleBufferReader(_PumpedReader):
     pinned buffer goes back into use only once its copy has completed
     (its event), and ``next()`` makes the caller's current stream wait for
     the batch's copies before it hands the batch over. On the CPU the
-    batch becomes CPU tensors. ``place`` None is the default device:
-    ``CUDAPlace(0)`` where torch sees a card, else the CPU (the JAX
-    package's ``jax.devices()[0]``)."""
+    batch becomes CPU tensors (copies). Either way the inner reader's
+    arrays are dropped once copied, so a DataLoader's shared-memory slot
+    goes back to its ring at once. ``place`` None stages on the device of
+    the Executor that pulls the reader (``bind_device``); the staging
+    thread starts once that device is known."""
 
     _eof_msg = "double_buffer inner reader exhausted"
 
@@ -263,15 +352,25 @@ class DoubleBufferReader(_PumpedReader):
         self.place = place
         self.shapes = inner.shapes
         self.dtypes = inner.dtypes
+        self._bound: Optional[torch.device] = None
         # name -> ring of [pinned tensor, event after its copy]: one more
         # than the batches that can be queued, handed over and in flight
         self._pinned: Dict[str, List] = {}
 
+    def bind_device(self, device: torch.device):
+        if self.place is None:
+            self._bound = torch.device(device)
+        self.inner.bind_device(device)
+
     def _device(self) -> torch.device:
         if self.place is not None:
             return self.place.torch_device()
-        return torch.device("cuda", 0) if torch.cuda.is_available() \
-            else torch.device("cpu")
+        if self._bound is None:
+            raise RuntimeError(
+                "double_buffer has no place and no Executor has pulled it "
+                "yet: it stages on the device of the Executor that pulls "
+                "it, or on the place given to layers.double_buffer")
+        return self._bound
 
     def _pin(self, name, arr, turn):
         """The pinned buffer of ``name`` for this turn, holding ``arr``."""
@@ -288,43 +387,51 @@ class DoubleBufferReader(_PumpedReader):
         slot[0].copy_(src)
         return slot
 
+    def _stage(self, feed, dev, side, turn):
+        """``feed`` copied onto ``dev``: (staged tensors, the event after
+        their copies or None). ``feed`` is not referenced after."""
+        if side is None:
+            return {k: torch.tensor(np.asarray(v))
+                    for k, v in feed.items()}, None
+        staged, slots = {}, []
+        with torch.cuda.stream(side):
+            for k, v in feed.items():
+                if isinstance(v, torch.Tensor) and v.device == dev:
+                    staged[k] = v
+                    continue
+                slot = self._pin(k, np.ascontiguousarray(np.asarray(v)),
+                                 turn)
+                staged[k] = slot[0].to(dev, non_blocking=True)
+                slots.append(slot)
+            ready = torch.cuda.Event()
+            ready.record(side)
+        for slot in slots:
+            slot[1] = ready
+        return staged, ready
+
     def _produce(self, gen):
         dev = self._device()
         side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
         turn = 0
         while True:
             try:
-                feed = self.inner.next()
+                staged = self._stage(self.inner.next(), dev, side, turn)
             except EOFException:
                 return
-            if side is None:
-                yield {k: torch.as_tensor(np.asarray(v))
-                       for k, v in feed.items()}, None
-                continue
-            staged, slots = {}, []
-            with torch.cuda.stream(side):
-                for k, v in feed.items():
-                    if isinstance(v, torch.Tensor) and v.device == dev:
-                        staged[k] = v
-                        continue
-                    slot = self._pin(k, np.ascontiguousarray(np.asarray(v)),
-                                     turn)
-                    staged[k] = slot[0].to(dev, non_blocking=True)
-                    slots.append(slot)
-                ready = torch.cuda.Event()
-                ready.record(side)
-            for slot in slots:
-                slot[1] = ready
             turn += 1
-            yield staged, ready
+            yield staged
 
     def start(self):
         self.inner.start()
-        self._spawn()
+        if self.place is not None or self._bound is not None:
+            self._device()  # a place without its device raises here
+            self._spawn()
 
     def next(self):
         if self._thread is None:
             self.start()
+            if self._thread is None:
+                self._device()  # unbound and no place: raises
         staged, ready = self._next_item()
         if ready is not None:
             cur = torch.cuda.current_stream(self._device())

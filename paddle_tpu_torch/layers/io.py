@@ -2,24 +2,26 @@
 paddle_tpu/layers/io.py).
 
 `data` declares feed variables. The reader-op pipeline — py_reader
-(reference io.py:474), double_buffer (:891), batch, shuffle, read_file,
-random_data_generator and Preprocessor — is backed by
-paddle_tpu_torch.io.reader: a reader is a Variable carrying a host-side
-pipeline stage, the `read` op marks where its batches enter the Program,
-and the Executor pulls and feeds them per step, so no Python feed dict is
-needed. `data_loader`, `open_recordio_file` and `open_files` wait for the
-next slice of the port.
+(reference io.py:474), data_loader (its multiprocess twin),
+open_recordio_file (:345), open_files (:724), double_buffer (:891),
+batch, shuffle, read_file, random_data_generator and Preprocessor — is
+backed by paddle_tpu_torch.io.reader and io.dataloader (the C++ runtime
+underneath): a reader is a Variable carrying a host-side pipeline stage,
+the `read` op marks where its batches enter the Program, and the
+Executor pulls and feeds them per step, so no Python feed dict is
+needed. `load` reads a saved tensor into a variable.
 """
 from __future__ import annotations
 
 from ..framework import unique_name
 from ..framework.core import default_main_program
 from ..framework.dtypes import convert_dtype
+from ..io import dataloader as dataloader_mod
 from ..io import reader as reader_mod
 
 __all__ = ["data", "py_reader", "data_loader", "read_file",
            "open_recordio_file", "open_files", "batch", "double_buffer",
-           "shuffle", "random_data_generator", "Preprocessor"]
+           "shuffle", "random_data_generator", "Preprocessor", "load"]
 
 
 def data(name, shape, append_batch_size=True, dtype="float32", lod_level=0, type=None, stop_gradient=True):
@@ -110,25 +112,75 @@ def py_reader(capacity, shapes, dtypes, lod_levels=None, name=None,
     return var
 
 
-def _next_slice(what):
-    raise NotImplementedError(
-        "%s is the next slice of the port (the multiprocess DataLoader and "
-        "the recordio readers); use py_reader" % what)
+def data_loader(capacity, shapes, dtypes, num_workers=2, ordered=True,
+                slot_bytes=4 << 20, start_method=None, name=None,
+                use_double_buffer=False):
+    """py_reader's multiprocess twin: `num_workers` worker PROCESSES
+    decode/assemble batches into a shared-memory slot ring (zero-copy,
+    GIL-free — see io/dataloader.py). Same wiring: decorate with
+    decorate_paddle_reader / decorate_sample_reader /
+    decorate_tensor_provider, then reader.start() per epoch; get the
+    data Variables with layers.read_file(reader); exhaustion raises
+    EOFException. `capacity` is the ring depth in batches. Call
+    reader.close() (or let it be GC'd) to release the workers and the
+    shared-memory segment."""
+    base = name or unique_name.generate("data_loader")
+    names = _slot_names(base, len(shapes))
+    holder = dataloader_mod.DataLoader(
+        names, [list(s) for s in shapes],
+        [convert_dtype(d) for d in dtypes], num_workers=num_workers,
+        capacity=capacity, slot_bytes=slot_bytes, ordered=ordered,
+        start_method=start_method)
+
+    def _wire(var):
+        var.decorate_paddle_reader = holder.decorate_paddle_reader
+        var.decorate_sample_reader = holder.decorate_sample_reader
+        var.decorate_tensor_provider = holder.decorate_tensor_provider
+        var.close = holder.close
+        return var
+
+    var = _wire(_make_reader_var(holder, name=base))
+    if use_double_buffer:
+        outer = _wire(double_buffer(var))
+        staging = outer._reader_holder
+
+        def close():
+            staging.reset()  # the staging thread stops before the workers
+            holder.close()
+
+        outer.close = close
+        return outer
+    return var
 
 
-def data_loader(*args, **kwargs):
-    """reference paddle_tpu.layers.data_loader: not ported yet."""
-    _next_slice("layers.data_loader")
+def open_recordio_file(filename, shapes, dtypes, lod_levels=None,
+                       pass_num=1):
+    """reference io.py:345 — a sample-level reader over a recordio file
+    written by recordio_convert (pickled sample tuples). Chain with
+    layers.batch(...) + read_file."""
+    base = unique_name.generate("recordio_reader")
+    names = _slot_names(base, len(shapes))
+    files = [filename] * pass_num
+    holder = reader_mod.RecordIOFilesReader(
+        files, names, [list(s) for s in shapes],
+        [convert_dtype(d) for d in dtypes])
+    return _make_reader_var(holder, name=base)
 
 
-def open_recordio_file(*args, **kwargs):
-    """reference io.py:345: not ported yet."""
-    _next_slice("layers.open_recordio_file")
-
-
-def open_files(*args, **kwargs):
-    """reference io.py:724: not ported yet."""
-    _next_slice("layers.open_files")
+def open_files(filenames, shapes, dtypes, lod_levels=None, pass_num=1,
+               thread_num=None, buffer_size=None):
+    """reference io.py:724 — like open_recordio_file over a file list.
+    thread_num is accepted for parity (the C++ PrefetchReader runs one
+    prefetch thread per file, in turn, with a bounded channel of
+    buffer_size records)."""
+    base = unique_name.generate("files_reader")
+    names = _slot_names(base, len(shapes))
+    files = list(filenames) * pass_num
+    holder = reader_mod.RecordIOFilesReader(
+        files, names, [list(s) for s in shapes],
+        [convert_dtype(d) for d in dtypes],
+        prefetch_capacity=buffer_size or 256)
+    return _make_reader_var(holder, name=base)
 
 
 def batch(reader, batch_size, drop_last=True):
@@ -254,3 +306,20 @@ class Preprocessor:
         holder.shapes = [list(s) for s in self._out_shapes]
         holder.dtypes = [str(d) for d in self._out_dtypes]
         self.reader = _make_reader_var(holder)
+
+
+def load(out, file_path, load_as_fp16=None):
+    """reference io.py:load (load_op.cc) — load a saved tensor from disk
+    into `out`: the `.npy` file that save_vars writes. The `load_file`
+    op reads it on the host on its first run on a device and reuses the
+    tensor after (ops/math.py), so a captured step never reads the
+    file."""
+    block = default_main_program().current_block()
+    block.append_op(
+        type="load_file",
+        inputs={},
+        outputs={"Out": [out]},
+        attrs={"file_path": str(file_path),
+               "load_as_fp16": bool(load_as_fp16)},
+    )
+    return out

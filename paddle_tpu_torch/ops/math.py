@@ -185,29 +185,51 @@ def _assign(ctx):
     return {"Out": ctx.input("X")}
 
 
-# assign_value's tensors, made once per (op, device): a host-to-device copy
-# on every run would block a CUDA graph capture, and bake a host address
-# into the graph if it did not
+# assign_value's and load_file's tensors, made once per (op, device): a
+# host-to-device copy on every run would block a CUDA graph capture, and
+# bake a host address into the graph if it did not
 _CONSTANTS = weakref.WeakKeyDictionary()
+
+
+def _host_constant(ctx, make):
+    """A copy of this op's tensor on ``ctx.device``, which ``make()``
+    gives as a numpy array on the op's first run there. Each run hands
+    out a fresh device-to-device copy: the executor writes outputs into
+    the scope's tensors in place (a later step or startup run), and that
+    must never reach the kept tensor."""
+    made = _CONSTANTS.setdefault(ctx.op, {})
+    kept = made.get(ctx.device)
+    if kept is None:
+        # a normal tensor even when first made under inference mode, so a
+        # training run of the same op may use it
+        with torch.inference_mode(False):
+            kept = made[ctx.device] = torch.from_numpy(
+                np.ascontiguousarray(make())).to(ctx.device)
+    return kept.clone()
 
 
 @register_op("assign_value")
 def _assign_value(ctx):
     """Attr-embedded data (a numpy array once the program is built or
     read back from JSON) as a tensor on the program's device, copied from
-    the host on the op's first run there and reused after (callers never
-    write into it)."""
-    made = _CONSTANTS.setdefault(ctx.op, {})
-    out = made.get(ctx.device)
-    if out is None:
-        dtype = ctx.attr("dtype", "float32")
-        arr = np.asarray(ctx.attr("values"), dtype=as_numpy_dtype(
-            dtype)).reshape(ctx.attr("shape"))
-        # a normal tensor even when first made under inference mode, so a
-        # training run of the same op may use it
-        with torch.inference_mode(False):
-            out = made[ctx.device] = torch.from_numpy(arr).to(ctx.device)
-    return {"Out": out}
+    the host on the op's first run there only."""
+    return {"Out": _host_constant(ctx, lambda: np.asarray(
+        ctx.attr("values"), dtype=as_numpy_dtype(ctx.attr(
+            "dtype", "float32"))).reshape(ctx.attr("shape")))}
+
+
+@register_op("load_file")
+def _load_file(ctx):
+    """reference: load_op.cc — a saved tensor (the ``.npy`` file that
+    io.save_vars writes) as the op's output, in float16 with
+    ``load_as_fp16``. Read on the host on the op's first run on a device
+    only, as assign_value's data is: a captured step never reads the
+    file (the JAX package reads it once, at trace time)."""
+    def read():
+        arr = np.load(ctx.attr("file_path"))
+        return arr.astype(np.float16) if ctx.attr("load_as_fp16",
+                                                  False) else arr
+    return {"Out": _host_constant(ctx, read)}
 
 
 @register_op("fill_constant")

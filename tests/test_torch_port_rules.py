@@ -16,6 +16,7 @@ import sys
 
 import numpy as np
 import pytest
+from _torch_forkserver import start_with_both_loaders
 
 torch = pytest.importorskip("torch")
 
@@ -47,9 +48,18 @@ def test_port_and_chip_smoke_import_no_jax():
         "import paddle_tpu_torch.inference, paddle_tpu_torch.serving.engine\n"
         "import paddle_tpu_torch.io.reader, paddle_tpu_torch.reader\n"
         "import paddle_tpu_torch.layers.io\n"
+        "import paddle_tpu_torch.runtime, paddle_tpu_torch.runtime.recordio\n"
+        "import paddle_tpu_torch.runtime.build, paddle_tpu_torch.io.dataloader\n"
+        "import paddle_tpu_torch.data_feeder, paddle_tpu_torch.recordio_writer\n"
+        "import paddle_tpu_torch.observability\n"
         "import chip_smoke\n"
+        "from paddle_tpu_torch.runtime import recordio\n"
+        "assert recordio.native_available()\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "assert recordio.lib_path() in maps\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
+        "bad += [l for l in maps.splitlines() if '/paddle_tpu/' in l]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -80,20 +90,23 @@ def test_predictor_defaults_to_the_card(monkeypatch, tmp_path):
 
 
 def test_assign_value_copies_from_the_host_once(monkeypatch):
-    """assign_value makes its tensor on an op's first run and hands the
-    same one out after, with no host copy (a copy from the host cannot be
-    captured into a CUDA graph)."""
+    """assign_value copies its data from the host on an op's first run
+    only (a copy from the host cannot be captured into a CUDA graph), and
+    hands out a copy of its kept tensor on every run, so nothing that
+    writes an output in place reaches the kept one."""
     prog = pt.Program()
     with pt.program_guard(prog, pt.Program()):
         out = layers.assign(np.arange(6, dtype=np.int64).reshape(2, 3))
     cpu = torch.device("cpu")
     with torch.inference_mode():
         first = run_block(prog.global_block(), {}, cpu)[out.name]
-    assert not first.is_inference()
     monkeypatch.setattr(torch, "from_numpy", None)   # any call would fail
     again = run_block(prog.global_block(), {}, cpu)[out.name]
-    assert again is first
-    np.testing.assert_array_equal(again.numpy(), np.arange(6).reshape(2, 3))
+    assert not again.is_inference()   # a training run may use it
+    assert again.data_ptr() != first.data_ptr()
+    again.fill_(-1)
+    third = run_block(prog.global_block(), {}, cpu)[out.name]
+    np.testing.assert_array_equal(third.numpy(), np.arange(6).reshape(2, 3))
 
 
 def test_executor_defaults_to_the_card(monkeypatch):
@@ -630,3 +643,62 @@ def test_chip_smoke_counts_every_port_kernel_as_attention():
     assert chip_smoke._kernel_kind(
         "void at::native::vectorized_elementwise_kernel<4, at::native::"
         "CUDAFunctor_add<float>>(int, ...)") == "other"
+
+
+def test_runtime_builds_into_the_port_build_dir_and_stubs_are_gone():
+    """The port's C++ runtime is its own copy, built into
+    build/paddle_tpu_torch/ (never beside the source, never the JAX
+    package's library), and the file input layers that raised before
+    this slice are ported."""
+    from paddle_tpu_torch.kernels import BUILD_DIR
+    from paddle_tpu_torch.layers import io as layers_io
+    from paddle_tpu_torch.runtime import build, recordio
+
+    path = build.lib_path()
+    assert path is not None, build.build_error()
+    assert os.path.dirname(path) == BUILD_DIR
+    assert not glob.glob(os.path.join(ROOT, "paddle_tpu_torch", "runtime",
+                                      "*.so"))
+    assert recordio.lib_path is build.lib_path
+    assert not hasattr(layers_io, "_next_slice")
+    for name in ("open_recordio_file", "open_files", "data_loader", "load"):
+        src = inspect.getsource(getattr(layers_io, name))
+        assert "NotImplementedError" not in src, name
+
+
+def test_chip_smoke_train_files_rehearses_on_cpu(tmp_path):
+    """chip_smoke's train_files phase at a tiny size on the CPU: the LM
+    from two recordio files through open_files -> batch -> double_buffer
+    (prefetch on and off) and through a 2-worker data_loader, each
+    window equal to per_step_feeds, EOF on the third call, the window
+    without double_buffer equal too; then the input_pipeline line on a
+    tiny workload."""
+    start_with_both_loaders()
+    sys.path.insert(0, ROOT)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(ROOT)
+    tcfg = dict(vocab_size=61, n_layer=2, n_head=2, d_model=32,
+                d_inner=64, max_len=16)
+    tf = chip_smoke.run_train_files(tcfg, 2, 16, 1e-2, 2, 0, pt.CPUPlace(),
+                                    str(tmp_path))
+    json.dumps(tf)
+    none = dict.fromkeys(chip_smoke.BF16_KERNELS, 0)
+    assert tf["launches"] == none == tf["host_launches"]
+    assert tf["native_runtime"] and os.listdir(tmp_path) == []
+    files, loader = tf["files"], tf["loader"]
+    assert files["eof_on_third_call"] and files["on_equals_off"]
+    assert loader["eof_on_third_call"]
+    for check in (files["windows_vs_per_step_feeds"]
+                  + loader["windows_vs_per_step_feeds"]
+                  + [tf["window_without_double_buffer"]["vs_per_step_feeds"]]):
+        assert check["bitwise"], check
+    assert files["prefetch_on"]["losses"] == loader["losses"]
+    assert loader["batches"] == 4 == loader["shm_batches"]
+    assert loader["pickle_batches"] == 0
+    ip = chip_smoke.input_pipeline(workers=1, sample_kb=1, n_batches=4,
+                                   rounds=1)
+    json.dumps(ip)
+    assert ip["batches_per_s"] > 0 and ip["threads_batches_per_s"] > 0
+    assert ip["transport"] == {"shm": 4, "pickle": 0}
