@@ -73,8 +73,9 @@ Each phase prints one JSON line:
    op, eager_steps()): step ms, tokens/s and peak memory by mode, the
    losses, the host's kernel launches per step by mode (0 in a replay).
    The main path's run: one more graph step under torch.profiler, host
-   counts zeroed just before it (they must stay 0; the profiler counts
-   K1, K2-dq and K2-dkv 12 times each inside the replay); a profiled
+   counts zeroed just before it (they must stay 0; the device's launch
+   counters, csrc/launch_count.cuh, count K1, K2-dq and K2-dkv 12 times
+   each inside the replay); a profiled
    eager step beside it (the idle share of each, busy time by kind, top
    kernels and host ops; tables in build/chip_smoke/train_step_ops.txt
    and train_step_eager_ops.txt). Then, from the state after the first
@@ -122,9 +123,11 @@ Each phase prints one JSON line:
    and captured by earlier ones) under torch.profiler
    (build/chip_smoke/generate_graph_ops.txt), with the kernel counts
    zeroed just before it: its replays launch K1 (prefill) and K3 (decode)
-   inside the graphs, where the host counts nothing and the profiler
-   counts 12 K1 per prefill and 12 K3 per decode step. The run fails
-   unless the host counts are 0 (nothing ran eagerly), the profiler's
+   inside the graphs, where the host counts nothing and the device's
+   counters count 12 K1 per prefill and 12 K3 per decode step (the
+   profiler's counts are printed beside them: now and then it loses a
+   kernel's record in a long trace of replays). The run fails
+   unless the host counts are 0 (nothing ran eagerly), the device's
    are those, no step was built or captured, and its tokens are the
    generated ones. K3's device time in that run rides on the slice line
    as k3_device_ms. The profile's "attention" is every kernel that the
@@ -148,11 +151,52 @@ Each phase prints one JSON line:
    shape), through its graph and its eager function in turns: ms per
    call, the largest output difference, and its logits against the
    DecodePredictor prefill's on the same prompts.
+8. sampling: generate with top-k (k 40) and top-p (p 0.9) on the slice's
+   prompts: through the graph steps twice with one seed and through the
+   eager functions with it (all equal: the draw is a function of the
+   step's seed feed, computed on the card), with another seed (tokens
+   differing, printed); a predictor with sample_k=1 gives the greedy
+   tokens.
+9. server: DecodeServer (continuous batching; K1 in each admission
+   prefill, K3 in every decode step, inside the steps' graphs) over the
+   serving config, fresh random weights from --seed. From tools/
+   bench_decode.py's batch-mode A/B (bench_batch_modes): 24 requests,
+   budgets 8 and 64 alternating, all sent as one burst (no arrival
+   process), a warm round per mode and the modes in turns. Widened to
+   the serving config: prompts of 64..1000 tokens drawn from --seed
+   (bench_decode's are 16), 8 slots over the full 2048-row slab (its
+   are 4 over prompt + budget), the burst split over 4 client threads
+   (its is one). A continuous and a static (gang) server on one
+   predictor. Every admission prefill bucket is captured first; a warm
+   round per mode; an untimed round with a generate at the server's
+   bucket beside it (equal to one with no server); then 3 timed rounds
+   per mode in turns: generated tokens/s, mean active slots, latency and
+   time to first token (p50, p99), decode step ms p50, prefill
+   executions, no build or capture; the owned slab's and the step
+   cache's GB. The server's main path: one more continuous round under
+   torch.profiler, K1/K3 host counts zeroed just before it (0 from the
+   host; the device's counters 12 K1 per admission prefill, 12 K3 per
+   decode step in the replays; device idle share and busy ms by kind;
+   build/chip_smoke/server_round_ops.txt). Gates: every greedy token
+   within LOGITS_TOL of its row's maximum (teacher-forced, the warm
+   continuous round), every later round's tokens (the one beside a
+   generate, the timed ones, the profiled one, the one stop() drains)
+   equal to the warm round of its mode, stop() during a burst completes
+   every future, a topk server round completes; tokens against generate
+   of each prompt alone are printed.
+10. predictor_server: PredictorServer(max_batch=8) over the LM's prefill
+   exported with a batch axis that buckets (bucketed_prefill_export, seq
+   1024): 32 single-row requests from 4 threads, a warm round and a
+   timed one: rows/s, latency p50 and p99, bucket fill, one build and
+   one capture per bucket at prewarm and none in traffic; every row
+   against Predictor.run's, and Predictor.run's rows against the
+   DecodePredictor prefill's last-position logits on the same rows and
+   weights (the export is the LM's prefill), each within LOGITS_TOL.
 
 Then one line with K1's BHTD and K2's (and K2-bf16's) pair numbers, one
 line
 {"kernels": [...]} (every kernel, with its launches on each main path,
-error, times and bound), the nvidia-smi line, and last
+the server's profiled round among them, error, times and bound), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure exits non-zero before that.
 Scratch files go to build/chip_smoke/; the export is removed.
 
@@ -279,6 +323,27 @@ REPS = 30
 FULL_CONFIG = dict(vocab_size=32768, n_layer=12, n_head=8, d_model=1024,
                    d_inner=4096, max_len=2048)
 N_PROMPTS, MAX_NEW = 8, 64
+# the sampling line's parameters (DecodePredictor's defaults) and seed
+SAMPLE_K, SAMPLE_P, SAMPLE_SEED = 40, 0.9, 1234
+# the server phase. From tools/bench_decode.py's batch-mode A/B
+# (bench_batch_modes, bench_decode.py:346-400): its CONT_REQUESTS
+# requests, budgets alternating its default mix at 128 steps (max(4,
+# 128 // 16), 128 // 2), every request sent at once (one burst, no
+# arrival process), one untimed warm round per mode, then the modes in
+# turns (it alternates which goes first). Not from it, widened to the
+# serving config: prompts of SERVER_PROMPT_LENS tokens drawn from --seed
+# (its DECODE_PROMPT is 16), SERVER_SLOTS slots over the full SERVER_SEQ
+# slab (its CONT_SLOTS is 4, over prompt + budget), and the burst split
+# over SERVER_CLIENTS threads (it submits from one)
+SERVER_SLOTS, SERVER_SEQ, SERVER_CLIENTS = 8, 2048, 4
+SERVER_REQUESTS, SERVER_BUDGETS = 24, (8, 64)
+SERVER_PROMPT_LENS = (64, 1000)
+SERVER_TIMED = ("continuous", "static", "static", "continuous",
+                "continuous", "static")
+# the predictor_server phase: PredictorServer(max_batch=8) over the LM's
+# prefill exported with a batch axis that buckets (1, 2, 4, 8), fed
+# single-row requests of full-length prompts from SERVER_CLIENTS threads
+PSERVER_MAX_BATCH, PSERVER_SEQ, PSERVER_REQUESTS = 8, 1024, 32
 
 # the flagship training config: bench.py's LM phase (bench.py:80-92,
 # bench_lm), full width and depth, 16 heads of 64; the train phase runs
@@ -1163,8 +1228,9 @@ def run_slice(config, prompt_lens, max_new, seed, place, workdir):
     """Export, load and serve ``config`` with random weights. Returns the
     slice line: the timed runs, the teacher-forced comparison and the main
     path's run (a steady-state generate through the graph steps, kernel
-    counts zeroed just before it; on the card under torch.profiler, whose
-    K1 and K3 counts ride as ``device_launches``); with the engine line
+    counts zeroed just before it; on the card under torch.profiler, with
+    the device's K1 and K3 counts as ``device_launches`` and the
+    profiler's as ``profiler_launches``); with the engine line
     (eager against graph steps, memory over buckets, ``res["engine"]``)
     and the predictor line (``res["predictor"]``) inside. Runs on any
     place (the CPU tests rehearse it at a tiny size); the caller checks
@@ -1290,8 +1356,8 @@ def run_slice(config, prompt_lens, max_new, seed, place, workdir):
                     pred, prompts, max_new)}
 
     # the main path: a steady-state generate through the graph steps,
-    # kernel counts zeroed just before it; on the card under the
-    # profiler, which counts the kernels the replays launch
+    # kernel counts zeroed just before it; on the card the device's
+    # counters count the kernels the replays launch, under the profiler
     got = {}
 
     def main_path():
@@ -1300,8 +1366,10 @@ def run_slice(config, prompt_lens, max_new, seed, place, workdir):
 
     _k1_k3_counts(reset=True)
     if cuda:
+        _device_counts((), reset=True)
         profile = profile_call(main_path, os.path.join(
             workdir, "generate_graph_ops.txt"))
+        device_launches = _device_counts(("K1", "K3"))
     else:
         main_path()
     launches = _k1_k3_counts()
@@ -1347,7 +1415,8 @@ def run_slice(config, prompt_lens, max_new, seed, place, workdir):
             launches_per_decode_step(pred, prompts, max_new)
         res["k3_device_ms"] = profile["port_kernels"].get(
             "decode_attn", {"device_ms": 0.0})["device_ms"]
-        res["device_launches"] = {
+        res["device_launches"] = device_launches
+        res["profiler_launches"] = {
             name: profile["port_kernels"].get(src, {"launches": 0})[
                 "launches"]
             for name, src in (("K1", "flash_fwd"), ("K3", "decode_attn"))}
@@ -1358,6 +1427,9 @@ def run_slice(config, prompt_lens, max_new, seed, place, workdir):
     res["engine"] = engine
     res["predictor"] = run_predictor(predictor_dir, pred, prompts, max_new,
                                      place)
+    t0 = time.perf_counter()
+    res["sampling"] = run_sampling(pred, model_dir, prompts, max_new, place)
+    res["sampling"]["seconds"] = time.perf_counter() - t0
     shutil.rmtree(model_dir, ignore_errors=True)
     shutil.rmtree(predictor_dir, ignore_errors=True)
     return res
@@ -1488,6 +1560,483 @@ def run_predictor(model_dir, pred, prompts, max_new, place, calls=5):
         fail("predictor check failed: %s" % json.dumps(res))
     del p
     if place.torch_device().type == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def run_sampling(pred, model_dir, prompts, max_new, place):
+    """The sampling line: ``generate`` with top-k (k SAMPLE_K) and top-p
+    (p SAMPLE_P) on the slice's prompts. For each: through the graph
+    steps twice with one seed (equal tokens), through the eager functions
+    with that seed (equal to the graph's: the draw is a function of the
+    seed feed, computed on the device), with another seed (how many
+    tokens differ); then a predictor with sample_k=1, whose topk tokens
+    must be the greedy ones."""
+    from paddle_tpu_torch.serving.decode import DecodePredictor
+
+    greedy = np.stack(pred.generate(prompts, max_new_tokens=max_new))
+    res = {"phase": "sampling", "k": SAMPLE_K, "p": SAMPLE_P,
+           "seed": SAMPLE_SEED}
+    for strategy in ("topk", "topp"):
+        def gen(seed, eager=False):
+            with eager_steps() if eager else contextlib.nullcontext():
+                return np.stack(pred.generate(
+                    prompts, max_new_tokens=max_new, strategy=strategy,
+                    seed=seed))
+
+        graph = gen(SAMPLE_SEED)
+        t0 = time.perf_counter()
+        again = gen(SAMPLE_SEED)
+        wall = time.perf_counter() - t0
+        eager = gen(SAMPLE_SEED, eager=True)
+        other = gen(SAMPLE_SEED + 1)
+        res[strategy] = {
+            "graph_equals_eager": bool(np.array_equal(graph, eager)),
+            "same_seed_equal": bool(np.array_equal(graph, again)),
+            "other_seed_tokens_differing": int((graph != other).sum()),
+            "tokens_differing_from_greedy": int((graph != greedy).sum()),
+            "in_range": bool(graph.min() >= 0
+                             and graph.max() < pred.config.vocab_size),
+            "decode_ms_p50": float(np.median(pred.timings["step"])),
+            "generate_s": wall}
+    k1 = DecodePredictor(model_dir, place=place, sample_k=1)
+    res["k1_equals_greedy"] = bool(np.array_equal(
+        np.stack(k1.generate(prompts, max_new_tokens=max_new,
+                             strategy="topk", seed=SAMPLE_SEED)), greedy))
+    del k1
+    ok = res["k1_equals_greedy"] and all(
+        res[s]["graph_equals_eager"] and res[s]["same_seed_equal"]
+        and res[s]["in_range"] and res[s]["other_seed_tokens_differing"]
+        for s in ("topk", "topp"))
+    if not ok:
+        fail("sampling check failed: %s" % json.dumps(res))
+    return res
+
+
+def _percentiles(xs):
+    xs = np.asarray(xs, np.float64)
+    return {"p50": float(np.percentile(xs, 50)),
+            "p99": float(np.percentile(xs, 99))}
+
+
+def serve_round(srv, requests, clients):
+    """Send ``requests`` ((sample, ...) tuples) to ``srv`` from
+    ``clients`` threads, request i from thread i % clients, each thread
+    submitting its share and then waiting for it. Returns (outputs, wall
+    s, per-request latency ms, time to first token ms or None)."""
+    import threading
+
+    n = len(requests)
+    futs, done = [None] * n, [0.0] * n
+
+    def client(c):
+        mine = range(c, n, clients)
+        for i in mine:
+            futs[i] = srv.submit(requests[i])
+            futs[i].add_done_callback(
+                lambda f, i=i: done.__setitem__(i, time.perf_counter()))
+        for i in mine:
+            futs[i].result(timeout=600)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    outs = [f.result(timeout=0)[0] for f in futs]
+    lat = [(d - f._t0) * 1e3 for d, f in zip(done, futs)]
+    ttft = [(f._t_first - f._t0) * 1e3 for f in futs
+            if f._t_first is not None]
+    return outs, wall, lat, ttft or None
+
+
+def _same_tokens(outs, want):
+    """Whether two rounds gave every request the same tokens."""
+    return len(outs) == len(want) and all(
+        np.array_equal(o, w) for o, w in zip(outs, want))
+
+
+def greedy_gate(pred, prompts, outs, budgets):
+    """Each server output checked teacher-forced, as the slice checks
+    generate: fed back through the predictor's prefill and decode steps
+    (groups of equal budget, at most SERVER_SLOTS prompts), every
+    generated token's logit must be within LOGITS_TOL of its row's
+    maximum. Returns the worst gap."""
+    import torch
+
+    worst = 0.0
+    for mn in sorted(set(budgets)):
+        idx = [i for i, b in enumerate(budgets) if b == mn]
+        for c in range(0, len(idx), SERVER_SLOTS):
+            chunk = idx[c:c + SERVER_SLOTS]
+            gen = np.stack([outs[i] for i in chunk])
+            logits = teacher_forced_logits(pred, [prompts[i] for i in chunk],
+                                           gen, mn)
+            picked = logits.gather(
+                2, torch.from_numpy(gen).to(logits.device)[..., None])[..., 0]
+            worst = max(worst, float((logits.max(-1).values
+                                      - picked).max()))
+    return worst
+
+
+def run_server(config, seed, place, workdir,
+               prompt_range=SERVER_PROMPT_LENS, budget_mix=SERVER_BUDGETS):
+    """The server line: DecodeServer over the serving config (random
+    weights from ``seed``), the traffic described above SERVER_SLOTS,
+    sent as one burst by SERVER_CLIENTS threads to a continuous and a static
+    (gang) server on one predictor. Every prefill bucket the traffic can
+    hit is captured first, then one untimed warm round per mode and one
+    untimed continuous round with a generate at the server's bucket
+    running beside it (its tokens must equal those of one with no server
+    running); then the timed rounds in turns (SERVER_TIMED), each:
+    generated tokens/s, mean active slots, request latency and time to
+    first token (p50, p99), decode step ms p50, prefill executions, and
+    no build or capture. Then one continuous round under torch.profiler
+    (on the card) with the K1/K3 host and device counts zeroed just
+    before it (the main path's run for the server: the device counts 12
+    K1 per admission prefill and 12 K3 per decode step), the greedy gate (teacher-forced, on
+    the warm continuous round), every later round's tokens equal to the
+    warm round of its mode (greedy decoding is deterministic, whatever
+    the grouping of admissions), tokens against generate of each prompt
+    alone (printed), a stop() during a burst (every future completes),
+    and a topk server round."""
+    import threading
+
+    import torch
+    from paddle_tpu_torch import Scope
+    from paddle_tpu_torch.serving.decode import (DecodeConfig,
+                                                 DecodePredictor,
+                                                 DecodeServer, _pow2_bucket,
+                                                 save_decode_model)
+
+    cuda = torch.device(place.torch_device()).type == "cuda"
+    cfg = DecodeConfig(**config)
+    t0 = time.perf_counter()
+    scope = Scope()
+    for name, val in init_params(cfg, seed).items():
+        scope.set_var(name, val)
+    model_dir = os.path.join(workdir, "server_model")
+    save_decode_model(model_dir, cfg, None, scope=scope)
+    del scope
+    pred = DecodePredictor(model_dir, place=place)
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 2)
+    lo, hi = prompt_range
+    plens = rng.integers(lo, hi + 1, SERVER_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int64)
+               for n in plens]
+    budgets = [budget_mix[i % len(budget_mix)]
+               for i in range(SERVER_REQUESTS)]
+    requests = [(p, np.array([b], np.int64))
+                for p, b in zip(prompts, budgets)]
+    max_new = max(budgets)
+    # point a's reference: a generate at the server's bucket, no server
+    gen_prompts = prompts[:SERVER_SLOTS]
+    gen_want = np.stack(pred.generate(gen_prompts, max_new_tokens=max_new))
+    servers = {mode: DecodeServer(pred, slots=SERVER_SLOTS,
+                                  max_seq=SERVER_SEQ, max_new_tokens=max_new,
+                                  continuous=mode == "continuous")
+               for mode in ("continuous", "static")}
+    t0 = time.perf_counter()
+    for srv in servers.values():
+        srv.start()
+    # every admission prefill bucket this traffic can hit
+    sps = sorted({min(_pow2_bucket(int(n), floor=16), SERVER_SEQ)
+                  for n in plens})
+    bbs = sorted({_pow2_bucket(b) for b in range(1, SERVER_SLOTS + 1)})
+    for bb in bbs:
+        for sp in sps:
+            pred.acquire("prefill", bb, sp)[0].capture()
+    warm_s = time.perf_counter() - t0
+    warm = {}
+    for mode, srv in servers.items():
+        warm[mode] = serve_round(srv, requests, SERVER_CLIENTS)[0]
+    # point a, untimed: a generate at the server's bucket while it serves
+    got_gen = {}
+    gen_thread = threading.Thread(target=lambda: got_gen.update(
+        tokens=np.stack(pred.generate(gen_prompts, max_new_tokens=max_new))))
+    gen_thread.start()
+    beside = serve_round(servers["continuous"], requests, SERVER_CLIENTS)[0]
+    gen_thread.join()
+    # each later round's greedy tokens against the warm round of its mode
+    equal_warm = {"beside_generate": _same_tokens(beside,
+                                                  warm["continuous"]),
+                  "timed": {mode: [] for mode in servers}}
+    traces = pred.traces
+    stats = {mode: {"tokens_per_s": [], "mean_active_slots": [],
+                    "latency_ms": [], "ttft_ms": [], "decode_step_ms_p50": [],
+                    "prefill_executions": [], "decode_steps": []}
+             for mode in servers}
+    for mode in SERVER_TIMED:
+        srv = servers[mode]
+        srv.step_active_counts.clear()
+        srv.step_ms.clear()
+        pf0 = srv.prefill_executions
+        outs, wall, lat, ttft = serve_round(srv, requests, SERVER_CLIENTS)
+        equal_warm["timed"][mode].append(_same_tokens(outs, warm[mode]))
+        st = stats[mode]
+        st["tokens_per_s"].append(sum(len(o) for o in outs) / wall)
+        st["mean_active_slots"].append(float(np.mean(
+            srv.step_active_counts)))
+        st["latency_ms"].append(_percentiles(lat))
+        st["ttft_ms"].append(_percentiles(ttft))
+        st["decode_step_ms_p50"].append(float(np.median(srv.step_ms)))
+        st["prefill_executions"].append(srv.prefill_executions - pf0)
+        st["decode_steps"].append(len(srv.step_active_counts))
+    timed_traces = pred.traces - traces
+    gen_equal = bool(np.array_equal(got_gen.get("tokens"), gen_want))
+    owned_gb = sum(s.numel() * s.element_size()
+                   for s in servers["continuous"]._slabs) / 1e9
+    # the server's main path: one continuous round, host counts zeroed
+    srv = servers["continuous"]
+    srv.step_active_counts.clear()
+    pf0 = srv.prefill_executions
+    _k1_k3_counts(reset=True)
+    profiled = {}
+
+    def main_path():
+        profiled["outs"] = serve_round(srv, requests, SERVER_CLIENTS)[0]
+
+    if cuda:
+        _device_counts((), reset=True)
+        profile = profile_call(main_path, os.path.join(
+            workdir, "server_round_ops.txt"))
+        device_launches = _device_counts(("K1", "K3"))
+    else:
+        profile = None
+        main_path()
+    host = _k1_k3_counts()
+    equal_warm["main_path"] = _same_tokens(profiled["outs"],
+                                           warm["continuous"])
+    prefills = srv.prefill_executions - pf0
+    steps = len(srv.step_active_counts)
+    res = {"phase": "server", "config": config, "slots": SERVER_SLOTS,
+           "seq": srv.seq, "requests": SERVER_REQUESTS,
+           "clients": SERVER_CLIENTS, "budgets": list(budget_mix),
+           "prompt_lens": [int(n) for n in plens],
+           "tokens_per_round": int(sum(budgets)), "timed_order":
+           list(SERVER_TIMED), "setup_s": setup_s, "warm_s": warm_s,
+           "prefill_buckets": [[bb, sp] for bb in bbs for sp in sps],
+           **{mode: st for mode, st in stats.items()},
+           "timed_builds_and_captures": timed_traces,
+           "owned_slab_gb": owned_gb,
+           "step_cache_gb": pred._steps.nbytes / 1e9,
+           "generate_during_round_equal": gen_equal,
+           "main_path": {"host_launches": host, "prefill_executions":
+                         prefills, "decode_steps": steps}}
+    n_layer = cfg.n_layer
+    if profile is not None:
+        res["main_path"]["device_launches"] = device_launches
+        res["main_path"]["profiler_launches"] = {
+            name: profile["port_kernels"].get(src, {"launches": 0})[
+                "launches"]
+            for name, src in (("K1", "flash_fwd"), ("K3", "decode_attn"))}
+        res["main_path"]["expected"] = {"K1": n_layer * prefills,
+                                        "K3": n_layer * steps}
+        res["profile"] = {key: profile[key] for key in (
+            "profiled_wall_ms", "device_busy_ms", "device_idle_share",
+            "device_ms_by_kind", "port_kernels", "host_launch_calls")}
+    # the gates on the greedy outputs (the warm continuous round's)
+    res["greedy_worst_logit_gap"] = greedy_gate(
+        pred, prompts, warm["continuous"], budgets)
+    alone = [pred.generate([p], max_new_tokens=b)[0]
+             for p, b in zip(prompts, budgets)]
+    res["tokens_differing_from_generate_alone"] = int(sum(
+        int((a != o).sum()) for a, o in zip(alone, warm["continuous"])))
+    res["static_vs_continuous_tokens_differing"] = int(sum(
+        int((a != o).sum()) for a, o in zip(warm["static"],
+                                            warm["continuous"])))
+    # stop() during a burst: every future completes
+    futs = [srv.submit(r) for r in requests]
+    stopper = threading.Thread(target=srv.stop)
+    stopper.start()
+    stopped = [f.result(timeout=600)[0] for f in futs]
+    stopper.join()
+    res["stop_during_burst_completed"] = int(sum(
+        len(o) == b for o, b in zip(stopped, budgets)))
+    equal_warm["stop_burst"] = _same_tokens(stopped, warm["continuous"])
+    res["rounds_equal_to_warm"] = equal_warm
+    servers["static"].stop()
+    topk = DecodeServer(pred, slots=SERVER_SLOTS, max_seq=SERVER_SEQ,
+                        max_new_tokens=max_new, strategy="topk")
+    topk.start()
+    touts = serve_round(topk, [(p, np.array([b, 100 + i], np.int64))
+                               for i, (p, b) in enumerate(
+                                   zip(prompts[:SERVER_SLOTS], budgets))],
+                        SERVER_CLIENTS)[0]
+    topk.stop()
+    res["topk_round_completed"] = int(sum(
+        len(o) == b and o.min() >= 0 and o.max() < cfg.vocab_size
+        for o, b in zip(touts, budgets)))
+    res["step_cache_gb_after_stop"] = pred._steps.nbytes / 1e9
+    bad = []
+    if timed_traces:
+        bad.append("the timed rounds built or captured %d" % timed_traces)
+    if not gen_equal:
+        bad.append("a generate during a round gave other tokens")
+    if any(host.values()):
+        bad.append("the host launched %s in the main path's round" % host)
+    if profile is not None and res["main_path"]["device_launches"] != \
+            res["main_path"]["expected"]:
+        bad.append("the profiled round launched %s"
+                   % res["main_path"]["device_launches"])
+    if res["greedy_worst_logit_gap"] > LOGITS_TOL:
+        bad.append("a greedy token is %.3g below its row's maximum"
+                   % res["greedy_worst_logit_gap"])
+    if not all([equal_warm["beside_generate"], equal_warm["main_path"],
+                equal_warm["stop_burst"]]
+               + [ok for oks in equal_warm["timed"].values() for ok in oks]):
+        bad.append("a round's greedy tokens differ from the warm round's")
+    if res["stop_during_burst_completed"] != SERVER_REQUESTS:
+        bad.append("stop() during a burst completed %d of %d"
+                   % (res["stop_during_burst_completed"], SERVER_REQUESTS))
+    if res["topk_round_completed"] != SERVER_SLOTS:
+        bad.append("the topk round completed %d of %d"
+                   % (res["topk_round_completed"], SERVER_SLOTS))
+    if bad:
+        fail("server: %s: %s" % ("; ".join(bad), json.dumps(res)))
+    del pred
+    shutil.rmtree(model_dir, ignore_errors=True)
+    if cuda:
+        torch.cuda.empty_cache()
+    return res
+
+
+def bucketed_prefill_export(model_dir, cfg, params, seq):
+    """The LM's prefill as an inference export whose batch axis buckets:
+    tokens (-1, seq), every row a full-length prompt, out the logits of
+    its last position (the serving graph's layers and parameter names;
+    the last row taken by a transpose and a gather, which keep rows apart,
+    where transformer_lm_prefill gathers with per-row offsets that fix
+    the batch). Stamped for bucketize (``program._bucketize``: batches
+    pad to pow2 buckets), as the optimizing transpiler stamps a row-wise
+    export; the stamp is set by hand, the transpiler is not ported."""
+    from paddle_tpu_torch import (Program, Scope, io, layers, program_guard,
+                                  unique_name)
+    from paddle_tpu_torch.models import transformer as T
+
+    prog, startup = Program(), Program()
+    with program_guard(prog, startup):
+        with unique_name.guard():
+            tokens = layers.data(name="tokens", shape=[-1, seq],
+                                 dtype="int64", append_batch_size=False)
+            x = T._embed(tokens, cfg.vocab_size, cfg.d_model, cfg.max_len,
+                         "lm")
+            for i in range(cfg.n_layer):
+                attn, _k, _v = T._cached_self_attention(
+                    T._pre_norm(x), cfg.n_head, cfg.d_model,
+                    "lm.l%d.self" % i)
+                x = layers.elementwise_add(x, attn)
+                x = layers.elementwise_add(x, T.positionwise_ffn(
+                    T._pre_norm(x), cfg.d_inner, cfg.d_model, 0.0,
+                    name="lm.l%d.ffn" % i))
+            x = T._pre_norm(x)
+            last = layers.gather(layers.transpose(x, perm=[1, 0, 2]),
+                                 layers.assign(np.array([seq - 1],
+                                                        np.int64)))
+            logits = T._lm_head_logits(
+                layers.reshape(last, shape=[-1, cfg.d_model]),
+                cfg.vocab_size, False, "lm")
+    prog._bucketize = {"feeds": ["tokens"], "fetches": [logits.name]}
+    scope = Scope()
+    for name, val in params.items():
+        scope.set_var(name, val)
+    io.save_inference_model(model_dir, ["tokens"], [logits], None,
+                            main_program=prog, scope=scope)
+
+
+def run_predictor_server(config, seed, place, workdir, seq=PSERVER_SEQ):
+    """The predictor_server line: PredictorServer(max_batch=
+    PSERVER_MAX_BATCH) over the LM's prefill exported with a bucketing
+    batch axis (bucketed_prefill_export, random weights from ``seed``),
+    PSERVER_REQUESTS single-row requests from SERVER_CLIENTS threads, one
+    warm round, then a timed one: rows/s, request latency (p50, p99),
+    bucket fill, builds and captures at prewarm (one build and one
+    capture per bucket) and in traffic (none), and every row against
+    Predictor.run's on the same rows (batches of PSERVER_MAX_BATCH),
+    within LOGITS_TOL. The export is held to the LM: Predictor.run's rows
+    against the last-position logits of the DecodePredictor prefill
+    (the serving graph) on the same rows and weights, within
+    LOGITS_TOL."""
+    import torch
+    from paddle_tpu_torch import Scope
+    from paddle_tpu_torch.inference import Predictor, PredictorServer
+    from paddle_tpu_torch.serving.decode import (DecodeConfig,
+                                                 DecodePredictor,
+                                                 save_decode_model)
+
+    cfg = DecodeConfig(**config)
+    t0 = time.perf_counter()
+    model_dir = os.path.join(workdir, "pserver_model")
+    params = init_params(cfg, seed)
+    bucketed_prefill_export(model_dir, cfg, params, seq)
+    p = Predictor(model_dir, place=place)
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 3)
+    rows = rng.integers(0, cfg.vocab_size,
+                        (PSERVER_REQUESTS, seq)).astype(np.int64)
+    traces0 = p.traces
+    srv = PredictorServer(p, max_batch=PSERVER_MAX_BATCH)
+    t0 = time.perf_counter()
+    srv.start()
+    prewarm_s = time.perf_counter() - t0
+    prewarm_traces = p.traces - traces0
+    requests = [(r,) for r in rows]
+    serve_round(srv, requests, SERVER_CLIENTS)
+    srv.batch_size_counts.clear()
+    traces1 = p.traces
+    outs, wall, lat, _ = serve_round(srv, requests, SERVER_CLIENTS)
+    srv.stop()
+    want = np.concatenate([p.run([rows[i:i + PSERVER_MAX_BATCH]])[0]
+                           for i in range(0, len(rows),
+                                          PSERVER_MAX_BATCH)])
+    # the export against the LM's own prefill: same rows, same weights
+    decode_dir = os.path.join(workdir, "pserver_decode_model")
+    scope = Scope()
+    for name, val in params.items():
+        scope.set_var(name, val)
+    save_decode_model(decode_dir, cfg, None, scope=scope)
+    del scope, params
+    dec = DecodePredictor(decode_dir, place=place)
+    lm = []
+    for i in range(0, len(rows), PSERVER_MAX_BATCH):
+        chunk = rows[i:i + PSERVER_MAX_BATCH]
+        lm.append(dec._prefill(chunk, np.full(len(chunk), seq, np.int32),
+                               seq).cpu().numpy())
+    vs_lm = float(np.abs(want - np.concatenate(lm)).max())
+    del dec, lm
+    shutil.rmtree(decode_dir, ignore_errors=True)
+    counts = dict(srv.batch_size_counts)
+    real = sum(n * c for n, c in counts.items())
+    padded = sum(srv._bucket_for(n) * c for n, c in counts.items())
+    err = float(np.abs(np.stack(outs) - want).max())
+    res = {"phase": "predictor_server", "config": config,
+           "export": [-1, seq], "buckets": srv.buckets,
+           "requests": PSERVER_REQUESTS, "clients": SERVER_CLIENTS,
+           "setup_s": setup_s, "prewarm_s": prewarm_s,
+           "rows_per_s": PSERVER_REQUESTS / wall,
+           "latency_ms": _percentiles(lat),
+           "batch_size_counts": {str(k): v for k, v in sorted(
+               counts.items())},
+           "bucket_fill": real / padded,
+           "prewarm_builds_and_captures": prewarm_traces,
+           "traffic_builds_and_captures": p.traces - traces1,
+           "vs_predictor_run_max_abs": err,
+           "predictor_run_vs_decode_prefill_max_abs": vs_lm,
+           "tol": LOGITS_TOL,
+           "finite": bool(np.isfinite(np.stack(outs)).all())}
+    cuda = p.device.type == "cuda"
+    want_prewarm = len(srv.buckets) * (2 if cuda else 1)
+    if not (res["finite"] and err <= LOGITS_TOL and vs_lm <= LOGITS_TOL
+            and prewarm_traces == want_prewarm
+            and res["traffic_builds_and_captures"] == 0):
+        fail("predictor_server check failed: %s" % json.dumps(res))
+    del p, srv
+    shutil.rmtree(model_dir, ignore_errors=True)
+    if cuda:
         torch.cuda.empty_cache()
     return res
 
@@ -1639,6 +2188,31 @@ KERNEL_SYMBOLS = {"K1": "flash_fwd_kernel", "K2-dq": "flash_bwd_dq_kernel",
                   "K2-dkv-bf16": "flash_bwd_dkv_bf16_kernel",
                   "K4-bf16": "flash_bwd_fused_bf16_kernel",
                   "K3": "decode_attn_kernel"}
+# each kernel's launch counter on the device (csrc/launch_count.cuh): its
+# library and its place in the order its source declares the kernels
+KERNEL_COUNTERS = {"K1": ("flash_fwd", 0), "K2-dq": ("flash_bwd", 0),
+                   "K2-dkv": ("flash_bwd", 1), "K4": ("flash_bwd_fused", 0),
+                   "K1-bf16": ("flash_fwd_bf16", 0),
+                   "K2-dq-bf16": ("flash_bwd_bf16", 0),
+                   "K2-dkv-bf16": ("flash_bwd_bf16", 1),
+                   "K4-bf16": ("flash_bwd_fused_bf16", 0),
+                   "K3": ("decode_attn", 0)}
+
+
+def _device_counts(keys, reset=False):
+    """The launches of the kernels ``keys`` since the counters were last
+    zeroed, as the device counts them: inside a graph's replay too, where
+    the wrappers' host counts see nothing, and exactly, where a profiler
+    now and then loses a kernel's record. ``reset`` zeroes every kernel's
+    counter after the read. Synchronizes the device first."""
+    import torch
+    from paddle_tpu_torch.kernels import launch_counts
+
+    torch.cuda.synchronize()
+    got = {src: launch_counts(src, reset=reset)
+           for src in sorted({src for src, _ in KERNEL_COUNTERS.values()})}
+    return {k: got[KERNEL_COUNTERS[k][0]][KERNEL_COUNTERS[k][1]]
+            for k in keys}
 
 
 def _launch_counts(reset=False, keys=FP32_KERNELS):
@@ -1933,7 +2507,7 @@ class _Trainer:
     """What the training phases share: one program's executor, scope and
     seeded batch; steps through the graph or op by op (eager_steps()),
     timed in turns; one step from a saved state; kernel launches counted
-    by the host and, inside replays, by the profiler."""
+    by the host and, inside replays, by the device's counters."""
 
     def __init__(self, exe, scope, main, loss, config, batch, seq, seed,
                  keys, workdir):
@@ -1968,8 +2542,8 @@ class _Trainer:
         the first turn (``self.saved``: a copy of the state after them,
         where the comparisons of one step start); then a profiled step of
         each mode, the graph one the main path's run (host counts zeroed
-        just before it: they must stay 0, the profiler counts the kernels
-        inside the replay)."""
+        just before it: they must stay 0, the device's counters count the
+        kernels inside the replay)."""
         torch = self.torch
         self.sync()
         setup_s = time.perf_counter() - t0
@@ -2028,9 +2602,11 @@ class _Trainer:
         # the main path's run: one graph step, counts zeroed just before
         _launch_counts(reset=True)
         if self.cuda:
+            _device_counts((), reset=True)
             graph["profile"] = profile_call(self.step, os.path.join(
                 self.workdir, table + "_ops.txt"))
-            res["launches_per_step"] = {
+            res["launches_per_step"] = _device_counts(self.keys)
+            res["profiler_launches_per_step"] = {
                 k: graph["profile"]["kernel_launches"].get(KERNEL_SYMBOLS[k],
                                                            0)
                 for k in self.keys}
@@ -2073,24 +2649,15 @@ class _Trainer:
 
     def replay_launches(self, program, ctx):
         """The kernels that one more step of ``program`` (a replay of the
-        graph that one_step captured) launches, as the profiler counts
-        them; zeros on the CPU."""
-        torch = self.torch
+        graph that one_step captured) launches, as the device's counters
+        count them; zeros on the CPU."""
         if not self.cuda:
             return dict.fromkeys(self.keys, 0)
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
-        self.sync()
-        with ctx, profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _device_counts((), reset=True)
+        with ctx:
             self.exe.run(program, self.feed, [self.loss] + self.grads,
                          scope=self.scope, return_numpy=False)
-            torch.cuda.synchronize()
-        events = [(e.key, e.count) for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA]
-        return {k: sum(c for name, c in events
-                       if re.search(r"\b%s\b" % KERNEL_SYMBOLS[k], name))
-                for k in self.keys}
+        return _device_counts(self.keys)
 
     def cache_line(self):
         """The executor's step cache: steps held, their bytes, captures."""
@@ -2169,8 +2736,8 @@ def run_train_loop(config, batch, seq, lr, warmup, steps, seed, place,
     """bench.py's LM phase as bench.py runs it: bf16 AMP O2, stepped by
     Executor.run_loop(k) and timed by its slope method (timed_loop), then
     one run_loop(steps) call profiled (the main path's run: host kernel
-    counts zeroed before it stay 0, one graph launch a step, the profiler
-    counts the kernels inside the replays). Gates: run_loop(steps) from a
+    counts zeroed before it stay 0, one graph launch a step, the device's
+    counters count the kernels inside the replays). Gates: run_loop(steps) from a
     saved state equals ``steps`` run calls from it. Then the reader
     window: the same program over py_reader -> double_buffer ->
     read_file, fed 2 windows of ``steps`` batches drawn from ``seed``
@@ -2214,10 +2781,12 @@ def run_train_loop(config, batch, seq, lr, warmup, steps, seed, place,
     # the main path's run: one run_loop(steps) call
     _launch_counts(reset=True)
     if t.cuda:
+        _device_counts((), reset=True)
         prof = profile_call(lambda: float(run_loop(steps)[0]),
                             os.path.join(workdir, "train_loop_ops.txt"))
         res["profile"] = prof
-        res["launches"] = {k: prof["kernel_launches"].get(
+        res["launches"] = _device_counts(keys)
+        res["profiler_launches"] = {k: prof["kernel_launches"].get(
             KERNEL_SYMBOLS[k], 0) for k in keys}
         res["graph_launches"] = prof["host_launch_calls"]["graph_launches"]
     else:
@@ -2376,8 +2945,8 @@ def run_train_files(config, batch, seq, lr, steps, seed, place, workdir):
     the same batches as per_step_feeds from one saved state
     (_same_steps), and the third call raises EOFException, on both
     paths. The main path's run: one files window under torch.profiler,
-    the host counts zeroed just before it (they must stay 0; the profiler
-    counts the bf16 kernels inside the replays). Then a window of
+    the host counts zeroed just before it (they must stay 0; the device's
+    counters count the bf16 kernels inside the replays). Then a window of
     open_files -> batch -> read_file (no double buffer, so the window
     holds ``steps`` batches that BatchReader handed out) at
     FILES_WINDOW_LAYERS layers against per_step_feeds. Runs on any place
@@ -2459,12 +3028,14 @@ def run_train_files(config, batch, seq, lr, steps, seed, place, workdir):
     freader.start()
     _launch_counts(reset=True)
     if t.cuda:
+        _device_counts((), reset=True)
         prof = profile_call(lambda: float(exe.run_loop(
             fmain, fetch_list=[floss], steps=steps, scope=scope,
             return_numpy=False)[0]), os.path.join(workdir,
                                                   "train_files_ops.txt"))
         res["profile"] = prof
-        res["launches"] = {k: prof["kernel_launches"].get(
+        res["launches"] = _device_counts(keys)
+        res["profiler_launches"] = {k: prof["kernel_launches"].get(
             KERNEL_SYMBOLS[k], 0) for k in keys}
         res["graph_launches"] = prof["host_launch_calls"]["graph_launches"]
     else:
@@ -2671,11 +3242,11 @@ def input_pipeline(workers=2, sample_kb=16, batch=16, n_batches=48,
 
 def check_launches(phase, res, want, paths):
     """A training line's kernel launches: the main path's graph step (the
-    profiler's counts in the replay) as ``want``, with none launched from
+    device's counts in the replay) as ``want``, with none launched from
     the host there or in the timed graph steps; each timed eager step and
     the eager kernel step launch ``want`` from the host; the plain
     attention pass launches no attention kernel; ``paths``: line key ->
-    expected counts (the knob and program paths, as the profiler counts a
+    expected counts (the knob and program paths, as the device counts a
     replay; the plain-backward pass, from the host)."""
     none = dict.fromkeys(want, 0)
     expect = {"launches_per_step": want, "main_path_host_launches": none,
@@ -3010,7 +3581,7 @@ def main(argv=None):
     want_loop = {k: v * LOOP_STEPS for k, v in want.items()}
     if tl["launches"] != want_loop or any(tl["host_launches"].values()) \
             or tl["graph_launches"] != LOOP_STEPS:
-        fail("run_loop(%d) launched %s (profiler), %s from the host and %d "
+        fail("run_loop(%d) launched %s (device), %s from the host and %d "
              "graphs; expected %s, none and %d"
              % (LOOP_STEPS, tl["launches"], tl["host_launches"],
                 tl["graph_launches"], want_loop, LOOP_STEPS))
@@ -3023,7 +3594,7 @@ def main(argv=None):
     want_files = {k: want_loop[k] for k in BF16_KERNELS}
     if tf["launches"] != want_files or any(tf["host_launches"].values()) \
             or tf["graph_launches"] != LOOP_STEPS:
-        fail("the files window launched %s (profiler), %s from the host and "
+        fail("the files window launched %s (device), %s from the host and "
              "%d graphs; expected %s, none and %d"
              % (tf["launches"], tf["host_launches"], tf["graph_launches"],
                 want_files, LOOP_STEPS))
@@ -3035,24 +3606,39 @@ def main(argv=None):
     sl = run_slice(FULL_CONFIG, prompt_lens, MAX_NEW, args.seed,
                    CUDAPlace(0), workdir)
     engine, predictor = sl.pop("engine"), sl.pop("predictor")
-    sl["gpu"] = engine["gpu"] = predictor["gpu"] = smi
+    sampling = sl.pop("sampling")
+    sl["gpu"] = engine["gpu"] = predictor["gpu"] = sampling["gpu"] = smi
     n_layer = FULL_CONFIG["n_layer"]
     # the main path's run replays the graphs: the host launches nothing,
-    # the profiler counts the kernels inside the replays
+    # the device's counters count the kernels inside the replays
     want_each = {"K1": n_layer * sl["prefill_calls"],
                  "K3": n_layer * sl["decode_steps"]}
     emit(sl)
     emit(engine)
     emit(predictor)
+    emit(sampling)
     if sl["launches"] != {"K1": 0, "K3": 0}:
         fail("the main path's generate launched kernels from the host %s: "
              "a step ran eagerly" % sl["launches"])
     if sl["device_launches"] != want_each:
-        fail("kernel launches in the main path's generate %s (profiler), "
+        fail("kernel launches in the main path's generate %s (device), "
              "expected %s" % (sl["device_launches"], want_each))
+    torch.cuda.empty_cache()
+    # the request servers: DecodeServer's continuous batching (K1 in each
+    # admission prefill, K3 in every decode step, inside the replays; its
+    # main path's run checked in run_server) and PredictorServer
+    t0 = time.perf_counter()
+    sv = run_server(FULL_CONFIG, args.seed, CUDAPlace(0), workdir)
+    sv["seconds"], sv["gpu"] = time.perf_counter() - t0, smi
+    emit(sv)
+    t0 = time.perf_counter()
+    ps = run_predictor_server(FULL_CONFIG, args.seed, CUDAPlace(0), workdir)
+    ps["seconds"], ps["gpu"] = time.perf_counter() - t0, smi
+    emit(ps)
+    server_launches = sv["main_path"]["device_launches"]
 
     # each kernel: its launches on each main path (one training step, a
-    # replay of its graph, as the profiler counts them; the fused-backward
+    # replay of its graph, as the device counts them; the fused-backward
     # step and the BHTD step; one run_loop call; one generate call), its
     # error and times at the training shape (K3: the serving shape)
     def entry(name, src, replaces, by_path, err, ms, plain_ms, bnd,
@@ -3074,7 +3660,8 @@ def main(argv=None):
               "paddle_tpu/ops/attention.py:172",
               {"train_step": per_step["K1"],
                "train_step_bhtd": tr["bhtd_launches"]["K1"],
-               "generate": sl["device_launches"]["K1"]},
+               "generate": sl["device_launches"]["K1"],
+               "server_round": server_launches["K1"]},
               k1["max_abs_err"], k1["ms"], k1["plain_ms"],
               (k1["bound_ms"], k1["bound_by"]), k1["library_ms"],
               generate_host_launches=sl["launches"]["K1"],
@@ -3101,7 +3688,8 @@ def main(argv=None):
               sass=sass_of("flash_bwd_dkv")),
         entry("decode_attn", csrc + "decode_attn.cu",
               "paddle_tpu/ops/kv_cache.py:88",
-              {"generate": sl["device_launches"]["K3"]},
+              {"generate": sl["device_launches"]["K3"],
+               "server_round": server_launches["K3"]},
               k3["max_abs_err"], k3["ms"], k3["plain_ms"],
               (k3["bound_ms"], k3["bound_by"]),
               k3["library_ms"], generate_host_launches=sl["launches"]["K3"],

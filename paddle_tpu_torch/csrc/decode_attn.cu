@@ -50,6 +50,9 @@
 #include <math.h>
 
 #include "tf32x3.cuh"  // cp_async_commit, cp_async_wait
+#include "launch_count.cuh"
+
+LAUNCH_COUNTERS(decode_attn, 1)
 
 namespace {
 
@@ -130,6 +133,7 @@ __global__ void __launch_bounds__(THREADS) decode_attn_kernel(
     const float* __restrict__ vc, const int* __restrict__ lens,
     float* __restrict__ out, float* __restrict__ part,
     int* __restrict__ counters, int H, int S, float scale_log2) {
+  count_launch(&decode_attn_launches[0]);
   constexpr int V = D / 32;   // floats per lane
   constexpr int CH = D / 4;   // 16-byte chunks per row
   constexpr int PS = D + PART_PAD;

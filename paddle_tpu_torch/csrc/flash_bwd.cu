@@ -81,6 +81,10 @@
 #include <math.h>
 
 #include "flash_bwd_kv.cuh"
+#include "launch_count.cuh"
+
+// one counter per kernel, in the order below
+LAUNCH_COUNTERS(flash_bwd, 2)
 
 namespace {
 
@@ -97,6 +101,7 @@ __global__ void __launch_bounds__(TC_THREADS, TcLayout<D>::MIN_BLOCKS)
                         float* __restrict__ dq,
                         const int* __restrict__ kv_lens, int H, int Tq,
                         int Tk, Strides st, float scale, int causal) {
+  count_launch(&flash_bwd_launches[0]);
   constexpr int STR = TcLayout<D>::STR, BQ = TC_ROWS, BK = TC_STREAM;
   constexpr int NK = BK / 8, ND = D / 8;  // 8-wide slices of keys, head dim
   extern __shared__ float4 smem4[];
@@ -225,6 +230,7 @@ __global__ void __launch_bounds__(TC_THREADS, TcLayout<D>::MIN_BLOCKS)
                          float* __restrict__ dk, float* __restrict__ dv,
                          const int* __restrict__ kv_lens, int H, int Tq,
                          int Tk, Strides st, float scale, int causal) {
+  count_launch(&flash_bwd_launches[1]);
   kv_outer<D, false>(q, k, v, dout, lse, delta, nullptr, dk, dv, kv_lens, H,
                      Tq, Tk, st, scale, causal);
 }

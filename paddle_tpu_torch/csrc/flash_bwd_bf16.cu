@@ -70,6 +70,10 @@
 //   the local memory (0) from cuobjdump.
 
 #include "flash_bwd_kv_bf16.cuh"
+#include "launch_count.cuh"
+
+// one counter per kernel, in the order below
+LAUNCH_COUNTERS(flash_bwd_bf16, 2)
 
 namespace {
 
@@ -99,6 +103,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                              bf16* __restrict__ dq,
                              const int* __restrict__ kv_lens, int H, int B,
                              int Tq, int Tk, OutStrides st, int causal) {
+  count_launch(&flash_bwd_bf16_launches[0]);
   using L = DqLayout<D>;
   constexpr int S = L::STAGES, NB = D / 64, BK = L::BK;
   extern __shared__ uint8_t smem_raw[];
@@ -339,6 +344,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                               const int* __restrict__ kv_lens, int H, int B,
                               int Tq, int Tk, OutStrides sk, OutStrides sv,
                               int causal) {
+  count_launch(&flash_bwd_bf16_launches[1]);
   kv_walk_bf16<D, false>(q_map, k_map, v_map, do_map, lse_map, delta_map,
                          nullptr, nullptr, dk, dv, kv_lens, H, B, Tq, Tk, sk,
                          sv, causal);

@@ -40,6 +40,9 @@
 #include <cuda_runtime.h>
 
 #include "flash_bwd_kv.cuh"
+#include "launch_count.cuh"
+
+LAUNCH_COUNTERS(flash_bwd_fused, 1)
 
 namespace {
 
@@ -55,6 +58,7 @@ __global__ void __launch_bounds__(TC_THREADS, TcLayout<D>::MIN_BLOCKS)
                            float* __restrict__ dv,
                            const int* __restrict__ kv_lens, int H, int Tq,
                            int Tk, Strides st, float scale, int causal) {
+  count_launch(&flash_bwd_fused_launches[0]);
   kv_outer<D, true>(q, k, v, dout, lse, delta, dq, dk, dv, kv_lens, H, Tq,
                     Tk, st, scale, causal);
 }

@@ -89,6 +89,9 @@
 // (0; at Dh 128 the consumers spill a few words to the stack).
 
 #include "flash_bwd_kv_bf16.cuh"
+#include "launch_count.cuh"
+
+LAUNCH_COUNTERS(flash_bwd_fused_bf16, 1)
 
 namespace {
 
@@ -108,6 +111,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                                 const int* __restrict__ kv_lens, int H, int B,
                                 int Tq, int Tk, OutStrides sk, OutStrides sv,
                                 int causal) {
+  count_launch(&flash_bwd_fused_bf16_launches[0]);
   kv_walk_bf16<D, true>(q_map, k_map, v_map, do_map, lse_map, delta_map,
                         &dq_map, &dq_bytes, dk, dv, kv_lens, H, B, Tq, Tk,
                         sk, sv, causal);

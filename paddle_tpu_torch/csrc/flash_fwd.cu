@@ -61,6 +61,9 @@
 #include <math.h>
 
 #include "tf32x3.cuh"
+#include "launch_count.cuh"
+
+LAUNCH_COUNTERS(flash_fwd, 1)
 
 namespace {
 
@@ -103,6 +106,7 @@ __global__ void __launch_bounds__(THREADS, FwdLayout<D>::MIN_BLOCKS)
                      float* __restrict__ lse, const int* __restrict__ kv_lens,
                      int H, int Tq, int Tk, FwdStrides st, float scale,
                      int causal) {
+  count_launch(&flash_fwd_launches[0]);
   using L = FwdLayout<D>;
   constexpr int STR = L::STR;
   constexpr int NK = BK / 8, ND = D / 8;  // 8-wide slices of keys, head dim

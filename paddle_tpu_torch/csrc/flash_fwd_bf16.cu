@@ -53,6 +53,9 @@
 //   the local memory (0) from cuobjdump.
 
 #include "sm90.cuh"
+#include "launch_count.cuh"
+
+LAUNCH_COUNTERS(flash_fwd_bf16, 1)
 
 namespace {
 
@@ -188,6 +191,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                           bf16* __restrict__ out, float* __restrict__ lse,
                           const int* __restrict__ kv_lens, int H, int B,
                           int Tq, int Tk, OutStrides st, int causal) {
+  count_launch(&flash_fwd_bf16_launches[0]);
   using L = FwdLayout<D>;
   constexpr int S = L::STAGES, NB = D / 64;  // ring slots, boxes of a row
   extern __shared__ uint8_t smem_raw[];

@@ -23,7 +23,7 @@ import time
 from typing import Dict, Iterable, Tuple
 
 __all__ = ["SOURCES", "BUILD_DIR", "build_all", "load", "library_path",
-           "cuda_tool"]
+           "cuda_tool", "launch_counts"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -115,3 +115,22 @@ def library_path(name: str) -> str:
     first use."""
     load(name)
     return _target(name)
+
+
+def launch_counts(name: str, reset: bool = False, device: int = 0,
+                  defines: Tuple[str, ...] = ()) -> Tuple[int, ...]:
+    """The launches of library ``name``'s kernels, as the device counts
+    them (csrc/launch_count.cuh: a launch inside a replayed CUDA graph
+    counts like one from the host), one per kernel in the order its
+    source declares them; ``reset`` zeroes them after the read. Reads
+    after the legacy default stream's work only: synchronize first."""
+    lib = load(name, defines)
+    n = getattr(lib, name + "_launch_kernels")()
+    out = (ctypes.c_ulonglong * n)()
+    fn = getattr(lib, name + "_launch_counts")
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+    err = fn(device, out, int(reset))
+    if err:
+        raise RuntimeError("%s: reading its launch counters failed with "
+                           "CUDA error %d" % (name, err))
+    return tuple(out)

@@ -22,6 +22,8 @@ __all__ = [
     "decode_attention",
     "cache_append",
     "greedy_sample",
+    "top_k_sample",
+    "top_p_sample",
     "mean",
     "fused_lm_head_loss",
 ]
@@ -278,6 +280,39 @@ def greedy_sample(logits, name=None):
         "int64", shape=(logits.shape[0],))
     helper.append_op(type="greedy_sample", inputs={"Logits": [logits]},
                      outputs={"Out": [out]}, attrs={})
+    return out
+
+
+def top_k_sample(logits, seed=None, k=40, temperature=1.0, name=None):
+    """Sample from the renormalized top-k logits slice -> (B,) int64.
+    ``seed`` (an int tensor; first element used) is a per-step feed in a
+    decode loop: the draw is a function of its value, so a replayed step
+    draws anew only when the seed changes (kernel: ops/sampling.py)."""
+    helper = LayerHelper("top_k_sample", name=name)
+    out = helper.create_variable_for_type_inference(
+        "int64", shape=(logits.shape[0],))
+    inputs = {"Logits": [logits]}
+    if seed is not None:
+        inputs["Seed"] = [seed]
+    helper.append_op(type="top_k_sample", inputs=inputs,
+                     outputs={"Out": [out]},
+                     attrs={"k": k, "temperature": temperature})
+    return out
+
+
+def top_p_sample(logits, seed=None, p=0.9, temperature=1.0, name=None):
+    """Nucleus sampling over the smallest probability mass >= p -> (B,)
+    int64; same Seed contract as ``top_k_sample`` (kernel:
+    ops/sampling.py)."""
+    helper = LayerHelper("top_p_sample", name=name)
+    out = helper.create_variable_for_type_inference(
+        "int64", shape=(logits.shape[0],))
+    inputs = {"Logits": [logits]}
+    if seed is not None:
+        inputs["Seed"] = [seed]
+    helper.append_op(type="top_p_sample", inputs=inputs,
+                     outputs={"Out": [out]},
+                     attrs={"p": p, "temperature": temperature})
     return out
 
 

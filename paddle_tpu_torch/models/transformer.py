@@ -272,12 +272,10 @@ def transformer_lm_decode(
 
     Each layer appends its fresh K/V row at ``lengths`` and runs
     single-query decode_attention over lengths+1 valid rows. Returns
-    (next_ids, logits, new_caches). Only the greedy strategy is ported
-    ("logits" skips sampling); top-k and top-p are a later slice."""
-    if strategy not in ("greedy", "logits"):
-        raise NotImplementedError(
-            "decode strategy %r is a later slice of the port (greedy | "
-            "logits)" % (strategy,))
+    (next_ids, logits, new_caches): next_ids (B,) int64 per ``strategy``
+    ("greedy" | "topk" | "topp" | "logits", the last skips sampling);
+    the top-k and top-p draws are functions of the ``seed`` feed's value
+    (ops/sampling.py). int8 slabs are a later slice."""
     B = tokens.shape[0]
     # embedding squeezes the trailing ids dim of 1 (LoD convention):
     # (B, 1) ids -> (B, D); restore the singleton time axis explicitly
@@ -309,5 +307,17 @@ def transformer_lm_decode(
     x = _pre_norm(x)
     last = layers.reshape(x, shape=[B, d_model])
     logits = _lm_head_logits(last, vocab_size, tie_embeddings, prefix)
-    next_ids = layers.greedy_sample(logits) if strategy == "greedy" else None
+    if strategy == "greedy":
+        next_ids = layers.greedy_sample(logits)
+    elif strategy == "topk":
+        next_ids = layers.top_k_sample(logits, seed=seed, k=sample_k,
+                                       temperature=temperature)
+    elif strategy == "topp":
+        next_ids = layers.top_p_sample(logits, seed=seed, p=sample_p,
+                                       temperature=temperature)
+    elif strategy == "logits":
+        next_ids = None
+    else:
+        raise ValueError("unknown decode strategy %r (greedy | topk | "
+                         "topp | logits)" % (strategy,))
     return next_ids, logits, new_caches

@@ -5,8 +5,8 @@ An always-on substrate for the questions a running job asks at any
 moment (how many batches went by which transport, how long a consumer
 waited), not only inside a start/stop profiling window: recording is a
 dict update under a lock (sub-microsecond), nothing is formatted or
-aggregated until somebody reads (``to_prometheus()``, the text exposition), and the
-whole thing resets in O(metrics).
+aggregated until somebody reads (export.py), and the whole thing resets
+in O(metrics).
 
 Metric types:
 - Counter: monotonically increasing float (``.inc()``).
@@ -21,7 +21,6 @@ combination is an independent series, exactly the Prometheus data model.
 """
 from __future__ import annotations
 
-import math
 import os
 import threading
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
@@ -280,71 +279,3 @@ REGISTRY = MetricRegistry()
 def get_registry() -> MetricRegistry:
     return REGISTRY
 
-
-# -- text exposition (the JAX package's observability/export.py) ------------
-
-
-def _escape(value: str) -> str:
-    return (str(value).replace("\\", "\\\\").replace('"', '\\"')
-            .replace("\n", "\\n"))
-
-
-def _labels_str(labels: Dict[str, str], extra: Optional[Dict] = None) -> str:
-    items = dict(labels)
-    if extra:
-        items.update(extra)
-    if not items:
-        return ""
-    body = ",".join('%s="%s"' % (k, _escape(v))
-                    for k, v in sorted(items.items()))
-    return "{%s}" % body
-
-
-def _fmt(v: float) -> str:
-    if isinstance(v, float) and math.isinf(v):
-        return "+Inf" if v > 0 else "-Inf"
-    f = float(v)
-    return repr(int(f)) if f == int(f) else repr(f)
-
-
-def to_prometheus(registry: Optional[MetricRegistry] = None) -> str:
-    """Prometheus text exposition of every registered metric. Metrics with
-    no series yet still emit HELP/TYPE plus (for unlabeled counters and
-    gauges) an explicit 0 sample, so scrape dashboards see the full
-    catalogue from the first scrape."""
-    registry = registry or REGISTRY
-    proc = process_labels()  # replica identity, when set (fleet workers)
-    out = []
-    for m in registry.collect():
-        samples = [(dict(proc, **labels), v) for labels, v in m.samples()]
-        kind = "summary" if isinstance(m, Summary) else m.kind
-        out.append("# HELP %s %s" % (m.name, _escape(m.help or m.name)))
-        out.append("# TYPE %s %s" % (m.name, kind))
-        if isinstance(m, (Counter, Gauge)):
-            if not samples:
-                out.append("%s%s 0" % (m.name, _labels_str(proc)))
-            for labels, value in samples:
-                out.append("%s%s %s" % (m.name, _labels_str(labels),
-                                        _fmt(value)))
-        elif isinstance(m, Histogram):
-            for labels, v in samples:
-                cum = 0
-                for ub, n in zip(m.buckets, v[:len(m.buckets)]):
-                    cum += n
-                    out.append("%s_bucket%s %d" % (
-                        m.name, _labels_str(labels, {"le": _fmt(ub)}), cum))
-                cum += v[len(m.buckets)]  # overflow
-                out.append("%s_bucket%s %d" % (
-                    m.name, _labels_str(labels, {"le": "+Inf"}), cum))
-                out.append("%s_sum%s %s" % (m.name, _labels_str(labels),
-                                            _fmt(v[-2])))
-                out.append("%s_count%s %d" % (m.name, _labels_str(labels),
-                                              v[-1]))
-        elif isinstance(m, Summary):
-            for labels, v in samples:
-                ls = _labels_str(labels)
-                out.append("%s_count%s %d" % (m.name, ls, v[0]))
-                out.append("%s_sum%s %s" % (m.name, ls, _fmt(v[1])))
-                out.append("%s_min%s %s" % (m.name, ls, _fmt(v[2])))
-                out.append("%s_max%s %s" % (m.name, ls, _fmt(v[3])))
-    return "\n".join(out) + "\n"

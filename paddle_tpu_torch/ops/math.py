@@ -151,9 +151,20 @@ def _transpose(ctx):
 
 @register_op("gather")
 def _gather(ctx):
+    """jnp.take's semantics, as the JAX package's op has them: a negative
+    index counts from the end, and a row out of range reads the fill value
+    (NaN for floats, the least value of an integer dtype) instead of
+    failing; all on the device, so a graph may hold it."""
     x = ctx.input("X")
     index = ctx.input("Index").reshape(-1).long()
-    return {"Out": x.index_select(0, index)}
+    n = x.shape[0]
+    valid = (index >= -n) & (index < n)
+    out = x.index_select(0, torch.where(index < 0, index + n, index)
+                         .clamp(0, max(n - 1, 0)))
+    fill = (float("nan") if x.is_floating_point()
+            else torch.iinfo(x.dtype).min)
+    mask = valid.reshape((-1,) + (1,) * (x.ndim - 1))
+    return {"Out": torch.where(mask, out, torch.full_like(out, fill))}
 
 
 @register_op("lookup_table")

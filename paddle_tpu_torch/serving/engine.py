@@ -130,6 +130,7 @@ class GraphStep:
         self.eager = eager
         self.warmup = eager if warmup is None else warmup
         self.name = name
+        self.kind = "step"       # the Engine's kind, set when it builds it
         self.device = torch.device(device)
         self.static = {n: torch.zeros(tuple(shape), dtype=dtype,
                                       device=self.device)
@@ -236,12 +237,14 @@ class GraphStep:
         return self._outs
 
     def _capture(self) -> None:
+        from .. import observability as obs
         from ..ops.kv_cache import own_counters
 
         if self._failed is not None:
             raise RuntimeError("step %s: its CUDA graph capture failed "
                                "earlier (no eager fallback): %s"
                                % (self.name, self._failed))
+        t0 = time.perf_counter()
         cur = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(cur)
@@ -278,6 +281,11 @@ class GraphStep:
         cur.wait_stream(side)
         self._graph, self._outs = graph, outs
         self.captures += 1
+        ms = (time.perf_counter() - t0) * 1e3
+        obs.COMPILE_TOTAL.inc(kind=self.kind, stage="capture")
+        obs.COMPILE_LATENCY_MS.observe(ms, kind=self.kind, stage="capture")
+        obs.TIMELINE.record_compile(self.kind, self.name, wall_ms=ms,
+                                    cache="capture")
         if self.on_capture is not None:
             self.on_capture(self)
 
@@ -295,7 +303,13 @@ class StepCache:
     and evicts nothing, so the steps one request looks up before it runs
     them (a decode bucket's decode and prefill steps) evict each other
     only when the bound cannot hold both. ``None`` is no bound.
-    ``traces`` counts builds and captures, evicted steps' too."""
+    ``traces`` counts builds and captures, evicted steps' too.
+
+    A PINNED step (``get``/``put`` with ``pin=True``) is never evicted:
+    its owner (a DecodeServer's decode step, whose static buffers are the
+    server's live K/V slabs) runs it for a lifetime of its own and hands
+    it back with ``release``, which drops it from the cache. Its bytes
+    still count against the bound, so the others make room."""
 
     def __init__(self, max_bytes: Optional[int] = None):
         self._max_bytes = max_bytes
@@ -303,6 +317,7 @@ class StepCache:
         self.evictions = 0
         self._evicted_captures = 0
         self._steps: "collections.OrderedDict" = collections.OrderedDict()
+        self._pinned: set = set()
         self._lock = threading.Lock()
 
     @property
@@ -315,20 +330,35 @@ class StepCache:
             self._max_bytes = value
             self._trim(None)
 
-    def get(self, key):
+    def get(self, key, pin: bool = False):
         with self._lock:
             step = self._steps.get(key)
             if step is not None:
                 self._steps.move_to_end(key)
+                if pin:
+                    self._pinned.add(key)
             return step
 
-    def put(self, key, step) -> None:
+    def put(self, key, step, pin: bool = False) -> None:
         with self._lock:
             self._steps[key] = step
             self._steps.move_to_end(key)
+            if pin:
+                self._pinned.add(key)
             self.builds += 1
             self._trim(step)
         step.on_capture = self._captured
+
+    def release(self, step) -> None:
+        """Unpin ``step`` and drop it from the cache (its graph, pool and
+        buffers go with the last reference); not counted as an
+        eviction."""
+        with self._lock:
+            for key, s in list(self._steps.items()):
+                if s is step:
+                    del self._steps[key]
+                    self._pinned.discard(key)
+                    self._evicted_captures += step.captures
 
     def _captured(self, step) -> None:
         with self._lock:
@@ -338,17 +368,20 @@ class StepCache:
     def _trim(self, keep) -> None:
         if self._max_bytes is None:
             return
+        from .. import observability as obs
+
         total = sum(s.nbytes for s in self._steps.values())
         for key in list(self._steps):
             if total <= self._max_bytes:
                 break
             step = self._steps[key]
-            if step is keep:
+            if step is keep or key in self._pinned:
                 continue
             del self._steps[key]
             total -= step.nbytes
             self.evictions += 1
             self._evicted_captures += step.captures
+            obs.CACHE_EVICTIONS.inc(kind=step.kind)
 
     def clear(self) -> None:
         """Drop every step, with its graph, pool and buffers (not counted
@@ -357,6 +390,7 @@ class StepCache:
             self._evicted_captures += sum(s.captures
                                           for s in self._steps.values())
             self._steps.clear()
+            self._pinned.clear()
 
     def steps(self) -> List:
         """The cached steps, least recently used first."""
@@ -501,17 +535,31 @@ class Engine:
 
     # -- acquisition --------------------------------------------------------
     def acquire(self, kind: str, key: str, build: Callable[[], object],
-                meta: Optional[Callable[[], Dict]] = None):
+                meta: Optional[Callable[[], Dict]] = None,
+                pin: bool = False):
         """The memory tier: ``(step, "memory")`` on a hit, else
         ``(build(), "built")``, stored under ``key`` with ``meta()`` as
-        its ``meta``."""
-        step = self.memory.get(key)
+        its ``meta``; ``pin`` pins it (StepCache). Hits, misses and builds
+        go to the ``CACHE_*`` and ``COMPILE_*`` series (stage="build"; the
+        step's capture, on the card, records stage="capture")."""
+        from .. import observability as obs
+
+        fp = self.fingerprint()
+        step = self.memory.get(key, pin=pin)
         if step is not None:
+            obs.CACHE_HITS.inc(kind=kind, tier="memory", program=fp)
             return step, "memory"
+        obs.CACHE_MISSES.inc(kind=kind, tier="memory", program=fp)
+        t0 = time.perf_counter()
         step = build()
+        step.kind = kind
         if meta is not None:
             step.meta = meta()
-        self.memory.put(key, step)
+        self.memory.put(key, step, pin=pin)
+        ms = (time.perf_counter() - t0) * 1e3
+        obs.COMPILE_TOTAL.inc(kind=kind, stage="build")
+        obs.COMPILE_LATENCY_MS.observe(ms, kind=kind, stage="build")
+        obs.TIMELINE.record_compile(kind, fp, wall_ms=ms, cache="build")
         return step, "built"
 
     def eager(self, state: Dict[str, torch.Tensor], device: torch.device
@@ -535,11 +583,12 @@ class Engine:
         return fn
 
     def graph_step(self, kind: str, specs: Sequence, state, device,
-                   *extra, check: Optional[Callable[[], None]] = None
-                   ) -> GraphStep:
+                   *extra, check: Optional[Callable[[], None]] = None,
+                   pin: bool = False) -> GraphStep:
         """The GraphStep of this program at the feed specs ``(name, shape,
-        torch dtype)``, looked up by ``key`` through ``acquire`` on every
-        call; ``check()`` runs before a build."""
+        torch dtype)``, looked up by ``key`` (``extra`` completes it)
+        through ``acquire`` on every call; ``check()`` runs before a
+        build; ``pin`` pins the step (StepCache)."""
         feed_sig = feed_signature(specs)
         fetches = tuple(self.fetch_names)
         key = self.key(kind, feed_sig, fetches, *extra)
@@ -552,5 +601,5 @@ class Engine:
                                                 key[:8]))
 
         return self.acquire(kind, key, build,
-                            meta=lambda: self.meta(kind, feed_sig,
-                                                   fetches))[0]
+                            meta=lambda: self.meta(kind, feed_sig, fetches),
+                            pin=pin)[0]

@@ -407,6 +407,100 @@ def test_bf16_kernels_in_cuda_graph(card, monkeypatch, fused):
     assert all(_bf16_ok(g, p, r) for g, p, r in zip(got, plain, ref))
 
 
+# each attention wrapper's kernel: its library and its counter's place there
+_COUNTERS = {"flash_attention_fwd": ("flash_fwd", 0),
+             "flash_attention_bwd_dq": ("flash_bwd", 0),
+             "flash_attention_bwd_dkv": ("flash_bwd", 1),
+             "flash_attention_bwd_fused": ("flash_bwd_fused", 0),
+             "flash_attention_fwd_bf16": ("flash_fwd_bf16", 0),
+             "flash_attention_bwd_dq_bf16": ("flash_bwd_bf16", 0),
+             "flash_attention_bwd_dkv_bf16": ("flash_bwd_bf16", 1),
+             "flash_attention_bwd_fused_bf16": ("flash_bwd_fused_bf16", 0)}
+
+
+def _counts():
+    """(host, device) launch counts of every attention kernel, by wrapper."""
+    from paddle_tpu_torch.kernels import launch_counts
+
+    torch.cuda.synchronize()
+    dev = {src: launch_counts(src)
+           for src in {src for src, _ in _COUNTERS.values()}}
+    return ({w: getattr(pt_attn, w).launches for w in _COUNTERS},
+            {w: dev[src][i] for w, (src, i) in _COUNTERS.items()})
+
+
+def _minus(a, b):
+    return {w: a[w] - b[w] for w in a}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [False, True], ids=["K2", "K4"])
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_device_counts_each_launch_and_each_replay(card, monkeypatch, bf16,
+                                                   fused):
+    """A kernel's counter on the device (csrc/launch_count.cuh) adds one
+    per launch: on an eager forward and backward, what the wrappers' host
+    counts add; a capture adds nothing; each replay adds one per kernel
+    of the step, where the host counts nothing."""
+    monkeypatch.setenv("PADDLE_TPU_FLASH_FUSED_BWD", "1" if fused else "0")
+    q, k, v, do, lens = _bf16_case(card, 3, 2, 256, 2, 64, True, "bthd",
+                                   None)
+    if not bf16:
+        q, k, v, do = (x.float() for x in (q, k, v, do))
+    names = ["flash_attention_fwd"] + (
+        ["flash_attention_bwd_fused"] if fused else
+        ["flash_attention_bwd_dq", "flash_attention_bwd_dkv"])
+    one = {w: int(w in [n + "_bf16" if bf16 else n for n in names])
+           for w in _COUNTERS}
+    side = torch.cuda.Stream(card)
+    side.wait_stream(torch.cuda.current_stream(card))
+    host0, dev0 = _counts()
+    with torch.cuda.stream(side):
+        _bf16_step(q, k, v, do, True, lens, "bthd")
+    torch.cuda.current_stream(card).wait_stream(side)
+    host1, dev1 = _counts()
+    assert _minus(dev1, dev0) == _minus(host1, host0) == one
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        _bf16_step(q, k, v, do, True, lens, "bthd")
+    host2, dev2 = _counts()
+    assert dev2 == dev1
+    for _ in range(3):
+        graph.replay()
+    host3, dev3 = _counts()
+    assert host3 == host2
+    assert _minus(dev3, dev2) == {w: 3 * n for w, n in one.items()}
+
+
+@pytest.mark.gpu
+def test_device_counts_decode_replays(card):
+    """K3's counter on the device adds one per eager launch, as its
+    wrapper's host count does, and one per replay of a captured launch."""
+    from paddle_tpu_torch.kernels import launch_counts
+
+    args = _decode_inputs(card, 5, 3, 256, 2, 64, [0, 1, 256])
+    side = torch.cuda.Stream(card)
+    side.wait_stream(torch.cuda.current_stream(card))
+    torch.cuda.synchronize()
+    host0, dev0 = pt_kv.decode_attention.launches, launch_counts(
+        "decode_attn")[0]
+    with torch.cuda.stream(side):
+        pt_kv.decode_attention(*args)
+    torch.cuda.current_stream(card).wait_stream(side)
+    torch.cuda.synchronize()
+    assert launch_counts("decode_attn")[0] - dev0 == 1
+    assert pt_kv.decode_attention.launches - host0 == 1
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        pt_kv.decode_attention(*args)
+    host1 = pt_kv.decode_attention.launches
+    for _ in range(4):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert launch_counts("decode_attn")[0] - dev0 == 5
+    assert pt_kv.decode_attention.launches == host1
+
+
 # ---------------------------------------------------------------------------
 # the Engine's graph steps (serving/engine.py) on the card
 # ---------------------------------------------------------------------------
@@ -544,6 +638,79 @@ def test_decode_graphs_replayed_on_two_streams(tiny_lm):
     ptrs = [c.data_ptr() for dstep, _f, _w in runs
             for c in dstep._counters.values()]
     assert len(set(ptrs)) == len(ptrs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strategy", ["topk", "topp"])
+def test_sampling_graph_equals_eager_and_cpu(tiny_lm, monkeypatch,
+                                             strategy):
+    """A top-k/top-p generate through the captured steps gives the eager
+    steps' ids for the same seed (the draw is a function of the seed
+    feed, computed on the card), and the op on the card draws what it
+    draws on the CPU for the same logits and seed."""
+    import numpy as np
+    from paddle_tpu_torch.ops import sampling as S
+    from paddle_tpu_torch.serving.engine import GraphStep
+
+    pred = tiny_lm
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, 97, n) for n in (20, 9, 13)]
+    graph = pred.generate(prompts, 8, strategy=strategy, seed=11)
+    again = pred.generate(prompts, 8, strategy=strategy, seed=11)
+    monkeypatch.setattr(GraphStep, "__call__", GraphStep.run_eager)
+    eager = pred.generate(prompts, 8, strategy=strategy, seed=11)
+    for g, a, e in zip(graph, again, eager):
+        np.testing.assert_array_equal(g, a)
+        np.testing.assert_array_equal(g, e)
+    logits = torch.randn(8, 97, generator=torch.Generator().manual_seed(4))
+    fn = S.top_k_sample if strategy == "topk" else S.top_p_sample
+    arg = 40 if strategy == "topk" else 0.9
+    seed = torch.tensor([77])
+    assert torch.equal(fn(logits.to(pred.device), seed.to(pred.device),
+                          arg).cpu(), fn(logits, seed, arg))
+
+
+@pytest.mark.gpu
+def test_server_captures_while_a_generate_runs(tiny_lm):
+    """A DecodeServer without prewarm captures its own decode step and its
+    admission prefills on its loop's thread while a generate on the same
+    predictor runs on another (captures are thread_local); both give the
+    tokens they give alone."""
+    import threading
+
+    import numpy as np
+    from paddle_tpu_torch.serving import decode as D
+
+    pred = tiny_lm
+    rng = np.random.default_rng(5)
+    traffic = [rng.integers(1, 97, int(n)) for n in rng.integers(3, 60, 12)]
+    gen_prompts = [rng.integers(1, 97, n) for n in (20, 9, 13)]
+    want_gen = pred.generate(gen_prompts, 16)
+    want_srv = [pred.generate([p], 8)[0] for p in traffic]
+    srv = D.DecodeServer(pred, slots=4, max_seq=128, max_new_tokens=8,
+                         prewarm=False)
+    srv.start()
+    got_gen = []
+    stop = threading.Event()
+
+    def generating():
+        while not stop.is_set():
+            got_gen.append(pred.generate(gen_prompts, 16))
+
+    th = threading.Thread(target=generating)
+    th.start()
+    got = [f.result(timeout=300)[0]
+           for f in [srv.submit((p,)) for p in traffic]]
+    stop.set()
+    th.join()
+    assert srv._step.captures == 1
+    srv.stop()
+    for g, w in zip(got, want_srv):
+        np.testing.assert_array_equal(g, w)
+    assert got_gen
+    for run in got_gen:
+        for g, w in zip(run, want_gen):
+            np.testing.assert_array_equal(g, w)
 
 
 @pytest.mark.gpu

@@ -52,6 +52,10 @@ def test_port_and_chip_smoke_import_no_jax():
         "import paddle_tpu_torch.runtime.build, paddle_tpu_torch.io.dataloader\n"
         "import paddle_tpu_torch.data_feeder, paddle_tpu_torch.recordio_writer\n"
         "import paddle_tpu_torch.observability\n"
+        "import paddle_tpu_torch.observability.export\n"
+        "import paddle_tpu_torch.observability.tracing\n"
+        "import paddle_tpu_torch.observability.timeline\n"
+        "import paddle_tpu_torch.ops.sampling\n"
         "import chip_smoke\n"
         "from paddle_tpu_torch.runtime import recordio\n"
         "assert recordio.native_available()\n"
@@ -401,11 +405,72 @@ def test_chip_smoke_slice_rehearses_on_cpu(tmp_path):
     assert all(m["step_cache_gb"] <= mem["bound_gb"]
                for m in mem["bounded"])
     # the predictor line: the prefill export at the slice's bucket
+    sa = res["sampling"]
+    assert sa["k1_equals_greedy"]
+    for strategy in ("topk", "topp"):
+        assert sa[strategy]["graph_equals_eager"]
+        assert sa[strategy]["same_seed_equal"]
     pr = res["predictor"]
     assert pr["export"] == [4, 32]
     assert pr["graph_vs_eager_max_abs"] == 0.0
     assert pr["vs_decode_prefill_equal"]
     for name in ("model", "predictor_model"):
+        assert not os.path.exists(os.path.join(str(tmp_path), name))
+
+
+def test_chip_smoke_servers_rehearse_on_cpu(tmp_path):
+    """chip_smoke's server and predictor_server phases at a tiny size on
+    the CPU: the traffic from 4 client threads through a continuous and a
+    static DecodeServer on one predictor (timed rounds in turns, nothing
+    built in them, a generate at the server's bucket during a round equal
+    to one without a server, the greedy gate, stop() during a burst, a
+    topk round), then PredictorServer over the LM's prefill exported with
+    a bucketing batch axis (one step per bucket at prewarm, none in
+    traffic, rows equal to Predictor.run's, and those equal to the
+    DecodePredictor prefill's logits); every later server round's tokens
+    equal to the warm round's."""
+    sys.path.insert(0, ROOT)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(ROOT)
+    cfg = dict(vocab_size=61, n_layer=2, n_head=2, d_model=32, d_inner=64,
+               max_len=128)
+    sv = chip_smoke.run_server(cfg, 0, pt.CPUPlace(), str(tmp_path),
+                               prompt_range=(4, 40), budget_mix=(3, 6))
+    json.dumps(sv)
+    assert sv["seq"] == 128 and sv["timed_builds_and_captures"] == 0
+    for mode, rounds in (("continuous", 3), ("static", 3)):
+        st = sv[mode]
+        assert len(st["tokens_per_s"]) == rounds
+        assert all(n > 0 for n in st["decode_steps"])
+        assert all(1 <= a <= chip_smoke.SERVER_SLOTS
+                   for a in st["mean_active_slots"])
+    # gang scheduling admits only into an empty slab: at least 24 / 8
+    # gangs (a gang starts with what has arrived)
+    assert all(n >= 3 for n in sv["static"]["prefill_executions"])
+    assert sv["main_path"]["host_launches"] == {"K1": 0, "K3": 0}
+    assert sv["generate_during_round_equal"]
+    assert sv["greedy_worst_logit_gap"] == 0.0
+    assert sv["tokens_differing_from_generate_alone"] == 0
+    eq = sv["rounds_equal_to_warm"]
+    assert eq["beside_generate"] and eq["main_path"] and eq["stop_burst"]
+    assert eq["timed"] == {"continuous": [True] * 3, "static": [True] * 3}
+    assert sv["stop_during_burst_completed"] == chip_smoke.SERVER_REQUESTS
+    assert sv["topk_round_completed"] == chip_smoke.SERVER_SLOTS
+    # the servers' own decode steps left the cache at stop()
+    assert sv["step_cache_gb_after_stop"] < sv["step_cache_gb"]
+    ps = chip_smoke.run_predictor_server(cfg, 0, pt.CPUPlace(),
+                                         str(tmp_path), seq=16)
+    json.dumps(ps)
+    assert ps["buckets"] == [1, 2, 4, 8]
+    assert ps["prewarm_builds_and_captures"] == 4
+    assert ps["traffic_builds_and_captures"] == 0
+    assert ps["vs_predictor_run_max_abs"] <= chip_smoke.LOGITS_TOL
+    assert ps["predictor_run_vs_decode_prefill_max_abs"] \
+        <= chip_smoke.LOGITS_TOL
+    assert 0 < ps["bucket_fill"] <= 1
+    for name in ("server_model", "pserver_model"):
         assert not os.path.exists(os.path.join(str(tmp_path), name))
 
 
@@ -643,6 +708,43 @@ def test_chip_smoke_counts_every_port_kernel_as_attention():
     assert chip_smoke._kernel_kind(
         "void at::native::vectorized_elementwise_kernel<4, at::native::"
         "CUDAFunctor_add<float>>(int, ...)") == "other"
+
+
+def test_every_port_kernel_counts_its_launches_on_the_device():
+    """Each csrc/*.cu source declares LAUNCH_COUNTERS(source, n) for its n
+    kernels, and each kernel's body opens by adding to its own counter,
+    one place per kernel; chip_smoke's KERNEL_COUNTERS names for each
+    kernel the library and place of the kernel its KERNEL_SYMBOLS names,
+    and covers every kernel."""
+    sys.path.insert(0, ROOT)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(ROOT)
+    kernel = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\s*"
+                        r"\([^;{]*?\)\s+)?(\w+)\s*\([^{]*\{\s*"
+                        r"count_launch\(&(\w+)_launches\[(\d+)\]\);")
+    places = {}
+    for path in sorted(glob.glob(os.path.join(ROOT, "paddle_tpu_torch",
+                                              "csrc", "*.cu"))):
+        source = os.path.basename(path)[:-3]
+        with open(path) as f:
+            text = f.read()
+        declared = re.findall(r"LAUNCH_COUNTERS\((\w+), (\d+)\)", text)
+        assert declared == [(source, declared[0][1])], (source, declared)
+        found = kernel.findall(text)
+        assert len(found) == text.count("__global__") >= 1, source
+        assert sorted(int(i) for _n, _s, i in found) == list(
+            range(int(declared[0][1]))), (source, found)
+        for name, counter, i in found:
+            assert counter == source, (source, name)
+            places[name] = (source, int(i))
+    assert sorted(chip_smoke.KERNEL_COUNTERS) == sorted(
+        chip_smoke.KERNEL_SYMBOLS)
+    assert {places[sym] for sym in chip_smoke.KERNEL_SYMBOLS.values()} == \
+        set(places.values())
+    for key, sym in chip_smoke.KERNEL_SYMBOLS.items():
+        assert chip_smoke.KERNEL_COUNTERS[key] == places[sym], key
 
 
 def test_runtime_builds_into_the_port_build_dir_and_stubs_are_gone():
