@@ -193,6 +193,42 @@ Each phase prints one JSON line:
    DecodePredictor prefill's last-position logits on the same rows and
    weights (the export is the LM's prefill), each within LOGITS_TOL.
 
+11-15. The rest of decode serving, on the serving config with the
+   slice's weights (and one export more), each phase a line
+   (run_decode_features):
+   speculative: generate(speculative=True, spec_k=SPEC_K) with a
+   DRAFT_LAYERS-deep draft against plain greedy, in turns, on the
+   slice's prompts and budget, on the random export and on the
+   acceptance-favourable one (tools/bench_decode.py's: layers past the
+   draft have their out and fc2 projections zeroed): tokens/s,
+   acceptance rate, draft and verify ms p50 (device, by CUDA events),
+   the device's launches in one call (12 K1; DRAFT_LAYERS K3 a draft
+   step, none in a verify step: its window attention is plain torch),
+   every token within LOGITS_TOL of its row's teacher-forced maximum, the
+   tokens differing from greedy printed, the favourable export's
+   acceptance at least SPEC_FAVOURABLE_ACCEPTANCE, and the draft and
+   verify steps on the decode step's own slabs (data_ptr).
+   server_spec: DecodeServer(speculative=True) and a plain server under
+   the server phase's traffic, warm rounds and then timed rounds in
+   turns: tokens/s, latency and TTFT, round ms, acceptance; the same
+   token gate, every round equal to the warm one, one more round's
+   device launches (12 K1 a prefill, DRAFT_LAYERS K3 a draft step).
+   prefix: a prefix-sharing server (PREFIX_HEADERS headers of
+   PREFIX_HEADER_LEN tokens; full hits and partial hits extended through
+   the verify window) and a private one in turns: tokens/s, TTFT,
+   prefill executions (each equal to the unique misses), the store's hits
+   and bytes, the token gate, and the device's launches over the shared
+   server's fill and warm burst (12 K1 a prefill, i.e. a store miss; 12
+   K3 a decode step; none in the verify windows). int8: DecodeServer(kv_dtype="int8") under
+   the server traffic: tokens/s, step ms, slab GB against fp32's, 12 K3
+   a step; one step replayed against the same step op by op with the
+   plain attention on the same int8 slabs (LOGITS_TOL); the share of
+   tokens equal to the fp32 server's printed. beam: generate_beam with
+   BEAM_SIZE beams on BEAM_PROMPTS prompts, BEAM_NEW tokens: step ms,
+   beam_size=1 = greedy, scores in order, the best beam's score = its
+   teacher-forced log-probability sum (LOGITS_TOL), 12 K3 a step.
+   Then one decode_features line with their seconds.
+
 Then one line with K1's BHTD and K2's (and K2-bf16's) pair numbers, one
 line
 {"kernels": [...]} (every kernel, with its launches on each main path,
@@ -340,6 +376,18 @@ SERVER_REQUESTS, SERVER_BUDGETS = 24, (8, 64)
 SERVER_PROMPT_LENS = (64, 1000)
 SERVER_TIMED = ("continuous", "static", "static", "continuous",
                 "continuous", "static")
+# phases 11-15. speculative: tools/bench_decode.py's draft depth and window
+# (DECODE_DRAFT_LAYERS 1, SPEC_K 4), the slice's prompts and budget; the
+# acceptance the favourable export must reach. prefix: PREFIX_HEADERS
+# system headers of PREFIX_HEADER_LEN tokens, a full prompt per header
+# (header + PREFIX_QUESTION_LEN tokens), and the server traffic's count
+# and budgets, half exact repeats of the full prompts, half a header and a
+# fresh suffix of PREFIX_SUFFIX_LENS tokens. beam: BEAM_SIZE beams over the
+# slice's first BEAM_PROMPTS prompts (a beam batch of 8), BEAM_NEW tokens
+SPEC_K, DRAFT_LAYERS, SPEC_FAVOURABLE_ACCEPTANCE = 4, 1, 0.9
+PREFIX_HEADERS, PREFIX_HEADER_LEN, PREFIX_QUESTION_LEN = 4, 512, 32
+PREFIX_SUFFIX_LENS = (8, 64)
+BEAM_SIZE, BEAM_PROMPTS, BEAM_NEW = 4, 2, 32
 # the predictor_server phase: PredictorServer(max_batch=8) over the LM's
 # prefill exported with a batch axis that buckets (1, 2, 4, 8), fed
 # single-row requests of full-length prompts from SERVER_CLIENTS threads
@@ -1100,7 +1148,8 @@ def plain_attention(forward_kernel=False):
     """Run the kernel-backed ops through their plain PyTorch versions (the
     reference path): fused_attention through flash_attention_plain (or,
     with ``forward_kernel``, through K1) and, when a gradient is asked
-    for, flash_attention_bwd_plain; decode_attention through
+    for, flash_attention_bwd_plain; decode_attention, and
+    decode_attention_quant on its dequantized slabs, through
     decode_attention_plain."""
     import torch
     from paddle_tpu_torch.ops import registry
@@ -1108,6 +1157,7 @@ def plain_attention(forward_kernel=False):
                                                 flash_attention_fwd,
                                                 flash_attention_plain)
     from paddle_tpu_torch.ops.kv_cache import decode_attention_plain
+    from paddle_tpu_torch.ops.quant import dequantize_slab
 
     fwd = flash_attention_fwd if forward_kernel else flash_attention_plain
 
@@ -1138,9 +1188,19 @@ def plain_attention(forward_kernel=False):
             ctx.input("Q"), ctx.input("KCache"), ctx.input("VCache"),
             ctx.input("Lengths"), scale=ctx.attr("scale", None))}
 
+    def decode_quant(ctx):
+        q = ctx.input("Q")
+        return {"Out": decode_attention_plain(
+            q, dequantize_slab(ctx.input("KCache"), ctx.input("KScales"),
+                               q.dtype),
+            dequantize_slab(ctx.input("VCache"), ctx.input("VScales"),
+                            q.dtype),
+            ctx.input("Lengths"), scale=ctx.attr("scale", None))}
+
     saved = dict(registry.KERNELS)
     registry.KERNELS.update({"fused_attention": fused,
-                             "decode_attention": decode})
+                             "decode_attention": decode,
+                             "decode_attention_quant": decode_quant})
     try:
         yield
     finally:
@@ -1709,7 +1769,7 @@ def run_server(config, seed, place, workdir,
     from paddle_tpu_torch import Scope
     from paddle_tpu_torch.serving.decode import (DecodeConfig,
                                                  DecodePredictor,
-                                                 DecodeServer, _pow2_bucket,
+                                                 DecodeServer,
                                                  save_decode_model)
 
     cuda = torch.device(place.torch_device()).type == "cuda"
@@ -1723,13 +1783,7 @@ def run_server(config, seed, place, workdir,
     del scope
     pred = DecodePredictor(model_dir, place=place)
     setup_s = time.perf_counter() - t0
-    rng = np.random.default_rng(seed + 2)
-    lo, hi = prompt_range
-    plens = rng.integers(lo, hi + 1, SERVER_REQUESTS)
-    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int64)
-               for n in plens]
-    budgets = [budget_mix[i % len(budget_mix)]
-               for i in range(SERVER_REQUESTS)]
+    prompts, budgets = _server_requests(cfg, seed, prompt_range, budget_mix)
     requests = [(p, np.array([b], np.int64))
                 for p, b in zip(prompts, budgets)]
     max_new = max(budgets)
@@ -1743,13 +1797,8 @@ def run_server(config, seed, place, workdir,
     t0 = time.perf_counter()
     for srv in servers.values():
         srv.start()
-    # every admission prefill bucket this traffic can hit
-    sps = sorted({min(_pow2_bucket(int(n), floor=16), SERVER_SEQ)
-                  for n in plens})
-    bbs = sorted({_pow2_bucket(b) for b in range(1, SERVER_SLOTS + 1)})
-    for bb in bbs:
-        for sp in sps:
-            pred.acquire("prefill", bb, sp)[0].capture()
+    buckets = _capture_prefills(pred, [len(p) for p in prompts],
+                                SERVER_SEQ)
     warm_s = time.perf_counter() - t0
     warm = {}
     for mode, srv in servers.items():
@@ -1816,10 +1865,10 @@ def run_server(config, seed, place, workdir,
     res = {"phase": "server", "config": config, "slots": SERVER_SLOTS,
            "seq": srv.seq, "requests": SERVER_REQUESTS,
            "clients": SERVER_CLIENTS, "budgets": list(budget_mix),
-           "prompt_lens": [int(n) for n in plens],
+           "prompt_lens": [len(p) for p in prompts],
            "tokens_per_round": int(sum(budgets)), "timed_order":
            list(SERVER_TIMED), "setup_s": setup_s, "warm_s": warm_s,
-           "prefill_buckets": [[bb, sp] for bb in bbs for sp in sps],
+           "prefill_buckets": buckets,
            **{mode: st for mode, st in stats.items()},
            "timed_builds_and_captures": timed_traces,
            "owned_slab_gb": owned_gb,
@@ -1903,6 +1952,642 @@ def run_server(config, seed, place, workdir,
     if cuda:
         torch.cuda.empty_cache()
     return res
+
+
+# ---------------------------------------------------------------------------
+# phases 11-15: the rest of decode serving (speculative decoding, the
+# speculative server, shared-prefix admission, int8 slabs, beam search)
+# ---------------------------------------------------------------------------
+
+
+def _export(workdir, name, cfg, params):
+    """``params`` written as a decode export under ``workdir``/``name``."""
+    from paddle_tpu_torch import Scope
+    from paddle_tpu_torch.serving.decode import save_decode_model
+
+    scope = Scope()
+    for key, val in params.items():
+        scope.set_var(key, val)
+    model_dir = os.path.join(workdir, name)
+    save_decode_model(model_dir, cfg, None, scope=scope)
+    return model_dir
+
+
+def favourable_params(params, draft_layers):
+    """tools/bench_decode.py's acceptance-favourable export
+    (bench_decode.py:118-133): every layer at or past the draft's depth
+    has its attention ``out`` and FFN ``fc2`` projections (weights and
+    biases) zeroed, so those layers are identities on the residual stream
+    and the draft's argmax is the target's. The zeroed products still
+    run: the cost of a step is unchanged."""
+    out = dict(params)
+    for name, val in params.items():
+        if re.match(r"lm\.l(\d+)\.(self\.out|ffn\.fc2)\.[wb]$", name) and \
+                int(name.split(".")[1][1:]) >= draft_layers:
+            out[name] = np.zeros_like(val)
+    return out
+
+
+def _tokens_differing(outs, want):
+    return int(sum(int((np.asarray(a) != np.asarray(b)).sum())
+                   + abs(len(a) - len(b)) for a, b in zip(outs, want)))
+
+
+def _spec_counts():
+    from paddle_tpu_torch import observability as obs
+
+    return (obs.DECODE_SPEC_PROPOSED.value(),
+            obs.DECODE_SPEC_ACCEPTED.value())
+
+
+def _shares_slabs(step, lender):
+    """Whether every slab feed of ``step`` is ``lender``'s own tensor."""
+    names = [n for n in step.static
+             if n.startswith(("kcache_", "vcache_"))]
+    return bool(names) and all(
+        step.static[n].data_ptr() == lender.static[n].data_ptr()
+        for n in names)
+
+
+def run_speculative(preds, prompts, max_new, spec_k, cuda):
+    """The speculative line: generate(speculative=True, spec_k) against
+    plain greedy on each export of ``preds`` ({name: predictor}), in
+    turns (plain, speculative, speculative, plain) after a warm call of
+    each: tokens/s, acceptance rate, draft and verify ms p50 (device,
+    by events), and on the card the device's K1/K3 launches of one
+    speculative generate and of one draft and one verify step alone
+    (the verify window's attention is plain torch: 0 K3). Gates: every
+    emitted token within LOGITS_TOL of its row's teacher-forced maximum,
+    the launch counts, the draft and verify steps on the decode step's
+    own slabs; the count of tokens that differ from plain greedy is
+    printed."""
+    out = {}
+    for name, pred in preds.items():
+        n_layer, dn = pred.config.n_layer, pred.draft_n_layer
+        tokens, lens, b, s = pred._bucketed(prompts, max_new)
+        plain = pred.generate(prompts, max_new)
+        spec = pred.generate(prompts, max_new, speculative=True,
+                             spec_k=spec_k)
+        res = {"tokens_per_s": {"plain": [], "speculative": []},
+               "draft_ms_p50": [], "verify_ms_p50": [], "rounds": [],
+               "tail_steps": [], "equal_to_first": True}
+        p0, a0 = _spec_counts()
+        for mode in ("plain", "speculative", "speculative", "plain"):
+            t0 = time.perf_counter()
+            got = pred.generate(prompts, max_new,
+                                speculative=mode == "speculative",
+                                spec_k=spec_k)
+            wall = time.perf_counter() - t0
+            res["tokens_per_s"][mode].append(sum(len(g) for g in got)
+                                             / wall)
+            first = spec if mode == "speculative" else plain
+            res["equal_to_first"] &= _same_tokens(got, first)
+            if mode == "speculative":
+                res["draft_ms_p50"].append(float(np.median(
+                    pred.timings["draft"])))
+                res["verify_ms_p50"].append(float(np.median(
+                    pred.timings["verify"])))
+                res["rounds"].append(len(pred.timings["verify"]))
+                res["tail_steps"].append(len(pred.timings["step"]))
+        proposed, accepted = (x - y for x, y in zip(_spec_counts(),
+                                                    (p0, a0)))
+        res["acceptance_rate"] = accepted / max(proposed, 1)
+        res["tokens_differing_from_greedy"] = _tokens_differing(spec, plain)
+        res["greedy_worst_logit_gap"] = greedy_gate(
+            pred, prompts, spec, [max_new] * len(prompts))
+        dexe = pred.acquire("decode", tokens.shape[0], s, "greedy")[0]
+        drexe = pred.acquire("draft", tokens.shape[0], s, lender=dexe)[0]
+        vexe = pred.acquire("verify", tokens.shape[0], s,
+                            window=spec_k + 1, lender=dexe)[0]
+        res["draft_verify_share_decode_slabs"] = (
+            _shares_slabs(drexe, dexe) and _shares_slabs(vexe, dexe))
+        if cuda:
+            _device_counts((), reset=True)
+            pred.generate(prompts, max_new, speculative=True, spec_k=spec_k)
+            got = _device_counts(("K1", "K3"), reset=True)
+            rounds, tail = (len(pred.timings["verify"]),
+                            len(pred.timings["step"]))
+            res["device_launches"] = got
+            res["expected"] = {"K1": n_layer,
+                               "K3": dn * spec_k * rounds + n_layer * tail}
+            drexe(dict(drexe.static))
+            res["draft_step_launches"] = _device_counts(("K1", "K3"),
+                                                        reset=True)
+            vexe(dict(vexe.static))
+            res["verify_step_launches"] = _device_counts(("K1", "K3"),
+                                                         reset=True)
+            res["device_launches_per_round"] = {
+                "K3": dn * spec_k, "K1": 0, "verify_K3": 0}
+        out[name] = res
+    return out
+
+
+def _server_requests(cfg, seed, prompt_range, budget_mix):
+    """run_server's traffic (its prompts and budgets from ``seed``)."""
+    rng = np.random.default_rng(seed + 2)
+    lo, hi = prompt_range
+    plens = rng.integers(lo, hi + 1, SERVER_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int64)
+               for n in plens]
+    budgets = [budget_mix[i % len(budget_mix)]
+               for i in range(SERVER_REQUESTS)]
+    return prompts, budgets
+
+
+def _capture_prefills(pred, plens, seq):
+    """Capture every admission prefill bucket that prompts of ``plens``
+    tokens can hit in a server of SERVER_SLOTS slots over ``seq`` rows;
+    returns the [batch, seq] buckets."""
+    from paddle_tpu_torch.serving.decode import _pow2_bucket
+
+    sps = sorted({min(_pow2_bucket(int(n), floor=16), seq) for n in plens})
+    bbs = sorted({_pow2_bucket(b) for b in range(1, SERVER_SLOTS + 1)})
+    buckets = [[bb, sp] for bb in bbs for sp in sps]
+    for bb, sp in buckets:
+        pred.acquire("prefill", bb, sp)[0].capture()
+    return buckets
+
+
+def _round_stats(srv, outs, wall, lat, ttft):
+    return {"tokens_per_s": sum(len(o) for o in outs) / wall,
+            "latency_ms": _percentiles(lat),
+            "ttft_ms": _percentiles(ttft),
+            "step_ms_p50": float(np.median(srv.step_ms)),
+            "steps": len(srv.step_ms)}
+
+
+def _timed_rounds(servers, order, requests, warm):
+    """Rounds of ``requests`` to ``servers`` ({mode: server}) in ``order``:
+    per mode a list of _round_stats, and whether each round's tokens equal
+    the warm round's of its mode."""
+    stats = {mode: [] for mode in servers}
+    equal = {mode: [] for mode in servers}
+    for mode in order:
+        srv = servers[mode]
+        srv.step_ms.clear()
+        pf0 = srv.prefill_executions
+        outs, wall, lat, ttft = serve_round(srv, requests, SERVER_CLIENTS)
+        st = _round_stats(srv, outs, wall, lat, ttft)
+        st["prefill_executions"] = srv.prefill_executions - pf0
+        stats[mode].append(st)
+        equal[mode].append(_same_tokens(outs, warm[mode]))
+    return stats, equal
+
+
+def run_server_spec(pred, cfg, seed, cuda, prompt_range, budget_mix,
+                    spec_k):
+    """The server_spec line: DecodeServer(speculative=True) and a plain
+    server on one predictor under the server phase's traffic; every
+    prefill bucket captured first, a warm round each, then timed rounds
+    in turns (plain, speculative, speculative, plain). Gates: the
+    speculative warm round's tokens within LOGITS_TOL of their rows'
+    teacher-forced maxima, every timed round equal to the warm round of
+    its mode, the draft and verify steps on the server's own slabs, and
+    on the card one more speculative round's device launches: K1 12 a
+    prefill, K3 draft_n_layer a draft step, none in a verify step. Tokens
+    differing from the plain server's are printed. Returns (line, the
+    plain server's warm outputs, the traffic)."""
+    from paddle_tpu_torch.serving.decode import DecodeServer
+
+    prompts, budgets = _server_requests(cfg, seed, prompt_range, budget_mix)
+    requests = [(p, np.array([b], np.int64))
+                for p, b in zip(prompts, budgets)]
+    _capture_prefills(pred, [len(p) for p in prompts], SERVER_SEQ)
+    servers = {"plain": DecodeServer(pred, slots=SERVER_SLOTS,
+                                     max_seq=SERVER_SEQ,
+                                     max_new_tokens=max(budgets)),
+               "speculative": DecodeServer(pred, slots=SERVER_SLOTS,
+                                           max_seq=SERVER_SEQ,
+                                           max_new_tokens=max(budgets),
+                                           speculative=True,
+                                           spec_k=spec_k)}
+    for srv in servers.values():
+        srv.start()
+    spec = servers["speculative"]
+    shares = (_shares_slabs(spec._draft, spec._step)
+              and _shares_slabs(spec._verify, spec._step))
+    warm = {mode: serve_round(srv, requests, SERVER_CLIENTS)[0]
+            for mode, srv in servers.items()}
+    p0, a0 = _spec_counts()
+    stats, equal = _timed_rounds(
+        servers, ("plain", "speculative", "speculative", "plain"),
+        requests, warm)
+    proposed, accepted = (x - y for x, y in zip(_spec_counts(), (p0, a0)))
+    res = {"phase": "server_spec", "spec_k": spec_k,
+           "draft_n_layer": pred.draft_n_layer, "slots": SERVER_SLOTS,
+           "seq": spec.seq, "requests": SERVER_REQUESTS,
+           "budgets": list(budget_mix), **stats,
+           "acceptance_rate": accepted / max(proposed, 1),
+           "rounds_equal_to_warm": equal,
+           "draft_verify_share_server_slabs": shares,
+           "tokens_differing_from_plain_server": _tokens_differing(
+               warm["speculative"], warm["plain"])}
+    if cuda:
+        spec.step_ms.clear()
+        pf0 = spec.prefill_executions
+        _device_counts((), reset=True)
+        outs = serve_round(spec, requests, SERVER_CLIENTS)[0]
+        got = _device_counts(("K1", "K3"), reset=True)
+        rounds = len(spec.step_ms)
+        res["main_path"] = {
+            "device_launches": got, "rounds": rounds,
+            "prefill_executions": spec.prefill_executions - pf0,
+            "expected": {"K1": cfg.n_layer * (spec.prefill_executions - pf0),
+                         "K3": pred.draft_n_layer * spec_k * rounds},
+            "equal_to_warm": _same_tokens(outs, warm["speculative"])}
+    res["greedy_worst_logit_gap"] = greedy_gate(pred, prompts,
+                                                warm["speculative"], budgets)
+    for srv in servers.values():
+        srv.stop()
+    return res, warm["plain"], (prompts, budgets, requests)
+
+
+def _prefix_traffic(cfg, seed, header_len, question_len, suffix_range):
+    """PREFIX_HEADERS system headers of ``header_len`` tokens; one full
+    prompt per header (header + a question of ``question_len``); then
+    SERVER_REQUESTS requests, every other one an exact repeat of a full
+    prompt (full hits) and the rest a header plus a fresh suffix of
+    ``suffix_range`` tokens (partial hits, extended through the verify
+    window)."""
+    rng = np.random.default_rng(seed + 3)
+    headers = [rng.integers(0, cfg.vocab_size, header_len)
+               for _ in range(PREFIX_HEADERS)]
+    full = [np.concatenate([h, rng.integers(0, cfg.vocab_size,
+                                            question_len)]).astype(np.int64)
+            for h in headers]
+    prompts = []
+    for i in range(SERVER_REQUESTS):
+        h = (i // 2) % PREFIX_HEADERS
+        if i % 2 == 0:
+            prompts.append(full[h])
+        else:
+            n = int(rng.integers(suffix_range[0], suffix_range[1] + 1))
+            prompts.append(np.concatenate([
+                headers[h], rng.integers(0, cfg.vocab_size, n)]).astype(
+                    np.int64))
+    return full, prompts
+
+
+def run_prefix(pred, cfg, seed, cuda, budget_mix, header_len, question_len,
+               suffix_range, spec_k):
+    """The prefix line: a prefix-sharing DecodeServer and a private one
+    on one predictor. The shared server first takes the PREFIX_HEADERS
+    full prompts one at a time (each a miss: one prefill, one store
+    entry), then its warm round of _prefix_traffic's burst of
+    SERVER_REQUESTS: that fill and burst is the shared server's main
+    path, and on the card the device's K1/K3 launches are zeroed just
+    before it and read just after (K1 12 a prefill, K3 12 a decode step,
+    none in the verify windows that extend partial hits). Then the
+    private server's warm round and timed rounds in turns (shared,
+    private, private, shared): tokens/s, TTFT p50/p99, prefill
+    executions, the store's hits, entries and bytes. Gates: the shared
+    server's prefill executions equal its unique misses in every round
+    (queries minus hits), every round equal to the warm round of its
+    mode, the shared warm round's tokens within LOGITS_TOL of their rows'
+    teacher-forced maxima, and the launches; tokens differing from the
+    private server's are printed."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.serving.decode import DecodeServer
+
+    full, prompts = _prefix_traffic(cfg, seed, header_len, question_len,
+                                    suffix_range)
+    budgets = [budget_mix[i % len(budget_mix)]
+               for i in range(len(prompts))]
+    requests = [(p, np.array([b], np.int64))
+                for p, b in zip(prompts, budgets)]
+    _capture_prefills(pred, [len(p) for p in prompts + full], SERVER_SEQ)
+    servers = {"shared": DecodeServer(pred, slots=SERVER_SLOTS,
+                                      max_seq=SERVER_SEQ,
+                                      max_new_tokens=max(budgets),
+                                      spec_k=spec_k, prefix_cache=True),
+               "private": DecodeServer(pred, slots=SERVER_SLOTS,
+                                       max_seq=SERVER_SEQ,
+                                       max_new_tokens=max(budgets))}
+    for srv in servers.values():
+        srv.start()
+    shared = servers["shared"]
+    store = shared._prefix
+
+    def counts():
+        return (obs.DECODE_PREFIX_QUERIES.value(),
+                {k: obs.DECODE_PREFIX_HITS.value(kind=k)
+                 for k in ("full", "partial", "batch")})
+
+    def misses(before):
+        q0, h0 = before
+        q1, h1 = counts()
+        hits = {k: h1[k] - h0[k] for k in h1}
+        return int(q1 - q0 - sum(hits.values())), hits
+
+    # the shared server's main path: the fill, then its warm burst
+    shared.step_ms.clear()
+    pf_start = shared.prefill_executions
+    ext0 = obs.DECODE_STEP_MS.stats(stage="extend")["count"]
+    if cuda:
+        _device_counts((), reset=True)
+    c0, pf0 = counts(), shared.prefill_executions
+    for p in full:
+        shared.submit((p, np.array([budget_mix[0]], np.int64))).result(
+            timeout=600)
+    fill_misses, _hits = misses(c0)
+    fill_line = {"prompts": len(full),
+                 "prefill_executions": shared.prefill_executions - pf0,
+                 "unique_misses": fill_misses, "entries": len(store),
+                 "store_bytes": store.bytes}
+    c0, pf0 = counts(), shared.prefill_executions
+    warm = {"shared": serve_round(shared, requests, SERVER_CLIENTS)[0]}
+    warm_misses, warm_hits = misses(c0)
+    warm_line = {"prefill_executions": shared.prefill_executions - pf0,
+                 "unique_misses": warm_misses, "hits": warm_hits}
+    prefills = shared.prefill_executions - pf_start
+    main_path = {"prefill_executions": prefills,
+                 "decode_steps": len(shared.step_ms),
+                 "verify_window_calls": obs.DECODE_STEP_MS.stats(
+                     stage="extend")["count"] - ext0}
+    if cuda:
+        main_path["device_launches"] = _device_counts(("K1", "K3"),
+                                                      reset=True)
+        main_path["expected"] = {
+            "K1": cfg.n_layer * prefills,
+            "K3": cfg.n_layer * main_path["decode_steps"]}
+    warm["private"] = serve_round(servers["private"], requests,
+                                  SERVER_CLIENTS)[0]
+    c0 = counts()
+    stats, equal = _timed_rounds(
+        servers, ("shared", "private", "private", "shared"), requests, warm)
+    timed_misses, timed_hits = misses(c0)
+    res = {"phase": "prefix", "headers": PREFIX_HEADERS,
+           "header_len": header_len, "question_len": question_len,
+           "suffix_lens": list(suffix_range), "requests": len(prompts),
+           "budgets": list(budget_mix), "fill": fill_line,
+           "warm_shared": warm_line, "main_path": main_path,
+           **stats, "timed_shared_hits": timed_hits,
+           "timed_shared_unique_misses": timed_misses,
+           "store": {"entries": len(store), "bytes": store.bytes,
+                     "max_bytes": store.max_bytes},
+           "rounds_equal_to_warm": equal,
+           "tokens_differing_from_private": _tokens_differing(
+               warm["shared"], warm["private"])}
+    res["greedy_worst_logit_gap"] = greedy_gate(pred, prompts,
+                                                warm["shared"], budgets)
+    for srv in servers.values():
+        srv.stop()
+    return res
+
+
+def run_int8(pred, cfg, cuda, traffic, fp32_warm):
+    """The int8 line: DecodeServer(kv_dtype="int8") under the server
+    phase's traffic: a warm round, two timed rounds (tokens/s, step ms
+    p50), its slab GB against the fp32 server's; on the card one round's
+    device launches (12 K3 a decode step, K1 12 a prefill). Gate: one
+    decode step of the server's own step, replayed, against the same
+    step run op by op with the plain attention on the same int8 slabs,
+    logits within LOGITS_TOL. The share of tokens equal to the fp32
+    server's is printed."""
+    import torch
+    from paddle_tpu_torch.serving.decode import DecodeServer
+
+    prompts, budgets, requests = traffic
+    srv = DecodeServer(pred, slots=SERVER_SLOTS, max_seq=SERVER_SEQ,
+                       max_new_tokens=max(budgets), kv_dtype="int8")
+    srv.start()
+    slab_gb = sum(t.numel() * t.element_size() for t in srv._slabs) / 1e9
+    fp32_gb = sum(t.numel() * 4 for t in srv._slabs
+                  if t.dtype == torch.int8) / 1e9
+    warm = serve_round(srv, requests, SERVER_CLIENTS)[0]
+    stats, equal = _timed_rounds({"int8": srv}, ("int8", "int8"), requests,
+                                 {"int8": warm})
+    res = {"phase": "int8", "slots": SERVER_SLOTS, "seq": srv.seq,
+           "requests": SERVER_REQUESTS, **stats,
+           "rounds_equal_to_warm": equal["int8"],
+           "slab_gb": slab_gb, "fp32_slab_gb": fp32_gb,
+           "share_of_tokens_equal_to_fp32_server": float(np.mean(
+               [t == u for a, b in zip(warm, fp32_warm)
+                for t, u in zip(a, b)]))}
+    if cuda:
+        srv.step_ms.clear()
+        pf0 = srv.prefill_executions
+        _device_counts((), reset=True)
+        serve_round(srv, requests, SERVER_CLIENTS)
+        got = _device_counts(("K1", "K3"), reset=True)
+        steps = len(srv.step_ms)
+        res["main_path"] = {
+            "device_launches": got, "decode_steps": steps,
+            "expected": {"K1": cfg.n_layer * (srv.prefill_executions - pf0),
+                         "K3": cfg.n_layer * steps}}
+    # one decode step on the slabs as the rounds left them, replayed and
+    # then op by op with the plain attention: appending the same row
+    # twice writes the same int8 row and scale
+    step = srv._step
+    rng = np.random.default_rng(0)
+    lens = rng.integers(1, srv.seq - 1, SERVER_SLOTS).astype(np.int32)
+    feeds = {"tokens": rng.integers(0, cfg.vocab_size,
+                                    (SERVER_SLOTS, 1)).astype(np.int64),
+             "positions": lens.reshape(-1, 1).astype(np.int64),
+             "lengths": lens, "seed": np.zeros((1,), np.int64)}
+    feeds.update(zip(srv._cache_feed_names, srv._slabs))
+    fetch = (lambda outs: outs[1].float().clone())
+    graph = step(feeds, read=fetch)
+    with plain_attention():
+        plain = step.run_eager(feeds, read=fetch)
+    res["step_vs_plain_max_abs"] = float((graph - plain).abs().max())
+    srv.stop()
+    return res
+
+
+def run_beam(pred, prompts, max_new, beam_size, cuda):
+    """The beam line: generate_beam(beam_size) on ``prompts`` (beam batch
+    pow2(len * beam_size)): ms per step p50 (the decode step, the beam
+    step and the slabs' reorder), and on the card the device's launches
+    of one call (12 K3 a step, 12 K1). Gates: beam_size=1 equals greedy,
+    each prompt's beam scores in order, the best beam's score equal to
+    its teacher-forced log-probability sum within LOGITS_TOL, the
+    launches."""
+    import torch
+
+    ids, lens, scores = pred.generate_beam(prompts, max_new,
+                                           beam_size=beam_size,
+                                           return_all=True)
+    steps = list(pred.timings["step"])
+    best = ids[:, 0, :]
+    logits = teacher_forced_logits(pred, prompts, best, max_new)
+    lp = torch.log_softmax(logits, dim=-1).gather(
+        2, torch.from_numpy(best.astype(np.int64)).to(logits.device)[
+            ..., None])[..., 0]
+    tf_sum = lp.sum(dim=1).cpu().numpy()
+    one = pred.generate(prompts, max_new, strategy="beam", beam_size=1)
+    greedy = pred.generate(prompts, max_new)
+    from paddle_tpu_torch.serving.decode import _pow2_bucket
+
+    bk = _pow2_bucket(len(prompts) * beam_size)
+    slab_gb = sum(t.numel() * t.element_size() for t in pred._slabs(
+        pred.acquire("decode", bk, pred._bucketed(prompts, max_new)[3],
+                     "logits")[0])) / 1e9
+    res = {"phase": "beam", "prompts": [len(p) for p in prompts],
+           "beam_size": beam_size, "max_new": max_new,
+           "step_ms_p50": float(np.median(steps)), "steps": len(steps),
+           "reorder_gb_per_step": 2 * slab_gb,
+           "scores": scores.tolist(), "lengths": lens.tolist(),
+           "scores_ordered": bool(np.all(np.diff(scores, axis=1) <= 0)),
+           "best_vs_teacher_forced_max_abs": float(np.abs(
+               tf_sum - scores[:, 0]).max()),
+           "beam1_equals_greedy": _same_tokens(one, greedy)}
+    if cuda:
+        _device_counts((), reset=True)
+        pred.generate_beam(prompts, max_new, beam_size=beam_size)
+        res["device_launches"] = _device_counts(("K1", "K3"), reset=True)
+        res["expected"] = {"K1": pred.config.n_layer,
+                           "K3": pred.config.n_layer * (max_new - 1)}
+    return res
+
+
+def run_decode_features(config, prompt_lens, max_new, seed, place, workdir,
+                        server_prompts=SERVER_PROMPT_LENS,
+                        budget_mix=SERVER_BUDGETS,
+                        prefix_sizes=(PREFIX_HEADER_LEN, PREFIX_QUESTION_LEN,
+                                      PREFIX_SUFFIX_LENS),
+                        beam_new=BEAM_NEW):
+    """Phases 11-15 on the serving config, random weights from ``seed``
+    (the slice's, and its prompts): the speculative, server_spec,
+    prefix, int8 and beam lines, each with its seconds; every gate
+    checked here (launch counts on the card). Runs on any place (the
+    CPU tests rehearse it at a tiny size)."""
+    import torch
+    from paddle_tpu_torch.serving.decode import DecodeConfig, DecodePredictor
+
+    cuda = torch.device(place.torch_device()).type == "cuda"
+    cfg = DecodeConfig(**config)
+    params = init_params(cfg, seed)
+    t0 = time.perf_counter()
+    dirs = {"random": _export(workdir, "features_model", cfg, params),
+            "favourable": _export(workdir, "favourable_model", cfg,
+                                  favourable_params(params, DRAFT_LAYERS))}
+    del params
+    preds = {name: DecodePredictor(d, place=place,
+                                   draft_n_layer=DRAFT_LAYERS)
+             for name, d in dirs.items()}
+    rng = np.random.default_rng(seed + 1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int64)
+               for n in prompt_lens]
+    lines = {}
+    t1 = time.perf_counter()
+    sp = run_speculative(preds, prompts, max_new, SPEC_K, cuda)
+    lines["speculative"] = {"phase": "speculative", "spec_k": SPEC_K,
+                            "draft_n_layer": DRAFT_LAYERS,
+                            "prompts": len(prompts), "max_new": max_new,
+                            "setup_s": t1 - t0, **sp}
+    fav = preds.pop("favourable")
+    del fav
+    pred = preds["random"]
+    if cuda:
+        torch.cuda.empty_cache()
+    lines["speculative"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lines["server_spec"], fp32_warm, traffic = run_server_spec(
+        pred, cfg, seed, cuda, server_prompts, budget_mix, SPEC_K)
+    lines["server_spec"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lines["prefix"] = run_prefix(pred, cfg, seed, cuda, budget_mix,
+                                 *prefix_sizes, SPEC_K)
+    lines["prefix"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lines["int8"] = run_int8(pred, cfg, cuda, traffic, fp32_warm)
+    lines["int8"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lines["beam"] = run_beam(pred, prompts[:BEAM_PROMPTS], beam_new,
+                             BEAM_SIZE, cuda)
+    lines["beam"]["seconds"] = time.perf_counter() - t0
+    del pred, preds
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    if cuda:
+        torch.cuda.empty_cache()
+    bad = []
+    for name, res in lines["speculative"].items():
+        if not isinstance(res, dict):
+            continue
+        if res["greedy_worst_logit_gap"] > LOGITS_TOL:
+            bad.append("speculative (%s): a token is %.3g below its row's "
+                       "maximum" % (name, res["greedy_worst_logit_gap"]))
+        if not res["equal_to_first"] or \
+                not res["draft_verify_share_decode_slabs"]:
+            bad.append("speculative (%s): a timed call changed its tokens "
+                       "or a step copies the slabs" % name)
+        if cuda and (res["device_launches"] != res["expected"]
+                     or res["verify_step_launches"] != {"K1": 0, "K3": 0}
+                     or res["draft_step_launches"] != {
+                         "K1": 0, "K3": DRAFT_LAYERS}):
+            bad.append("speculative (%s): launches %s, draft %s, verify %s;"
+                       " expected %s" % (name, res["device_launches"],
+                                         res["draft_step_launches"],
+                                         res["verify_step_launches"],
+                                         res["expected"]))
+    fav_rate = lines["speculative"]["favourable"]["acceptance_rate"]
+    if fav_rate < SPEC_FAVOURABLE_ACCEPTANCE:
+        bad.append("speculative: acceptance %.3f on the favourable export"
+                   % fav_rate)
+    ss = lines["server_spec"]
+    if ss["greedy_worst_logit_gap"] > LOGITS_TOL:
+        bad.append("server_spec: a token is %.3g below its row's maximum"
+                   % ss["greedy_worst_logit_gap"])
+    if not all(ok for oks in ss["rounds_equal_to_warm"].values()
+               for ok in oks) or not ss["draft_verify_share_server_slabs"]:
+        bad.append("server_spec: a round differs from the warm one, or a "
+                   "step copies the slabs")
+    if cuda and (ss["main_path"]["device_launches"]
+                 != ss["main_path"]["expected"]
+                 or not ss["main_path"]["equal_to_warm"]):
+        bad.append("server_spec: the round launched %s, expected %s"
+                   % (ss["main_path"]["device_launches"],
+                      ss["main_path"]["expected"]))
+    px = lines["prefix"]
+    if px["greedy_worst_logit_gap"] > LOGITS_TOL:
+        bad.append("prefix: a token is %.3g below its row's maximum"
+                   % px["greedy_worst_logit_gap"])
+    if px["fill"]["prefill_executions"] != px["fill"]["unique_misses"] or \
+            px["warm_shared"]["prefill_executions"] != \
+            px["warm_shared"]["unique_misses"] or \
+            px["timed_shared_unique_misses"] != sum(
+                st["prefill_executions"] for st in px["shared"]):
+        bad.append("prefix: prefill executions differ from unique misses")
+    if not all(ok for oks in px["rounds_equal_to_warm"].values()
+               for ok in oks):
+        bad.append("prefix: a round differs from the warm one")
+    pm = px["main_path"]
+    if pm["verify_window_calls"] < 1 or pm["prefill_executions"] != \
+            px["fill"]["unique_misses"] + px["warm_shared"]["unique_misses"]:
+        bad.append("prefix: the main path made %d verify window calls and "
+                   "%d prefills for %d unique misses" % (
+                       pm["verify_window_calls"], pm["prefill_executions"],
+                       px["fill"]["unique_misses"]
+                       + px["warm_shared"]["unique_misses"]))
+    if cuda and pm["device_launches"] != pm["expected"]:
+        bad.append("prefix: the main path launched %s, expected %s"
+                   % (pm["device_launches"], pm["expected"]))
+    q8 = lines["int8"]
+    if q8["step_vs_plain_max_abs"] > LOGITS_TOL or \
+            not all(q8["rounds_equal_to_warm"]):
+        bad.append("int8: step vs plain %.3g, or a round differs from the "
+                   "warm one" % q8["step_vs_plain_max_abs"])
+    if cuda and q8["main_path"]["device_launches"] != \
+            q8["main_path"]["expected"]:
+        bad.append("int8: the round launched %s, expected %s"
+                   % (q8["main_path"]["device_launches"],
+                      q8["main_path"]["expected"]))
+    bm = lines["beam"]
+    if not (bm["beam1_equals_greedy"] and bm["scores_ordered"]) or \
+            bm["best_vs_teacher_forced_max_abs"] > LOGITS_TOL:
+        bad.append("beam: beam 1 = greedy %s, ordered %s, best vs "
+                   "teacher-forced %.3g" % (
+                       bm["beam1_equals_greedy"], bm["scores_ordered"],
+                       bm["best_vs_teacher_forced_max_abs"]))
+    if cuda and bm["device_launches"] != bm["expected"]:
+        bad.append("beam: launched %s, expected %s"
+                   % (bm["device_launches"], bm["expected"]))
+    if bad:
+        fail("decode features: %s: %s" % ("; ".join(bad), json.dumps(
+            lines, default=str)))
+    return lines
 
 
 def bucketed_prefill_export(model_dir, cfg, params, seq):
@@ -3636,6 +4321,18 @@ def main(argv=None):
     ps["seconds"], ps["gpu"] = time.perf_counter() - t0, smi
     emit(ps)
     server_launches = sv["main_path"]["device_launches"]
+    # the rest of decode serving on the serving config: speculative
+    # decoding (generate and server), shared-prefix admission, int8 slabs
+    # and beam search (gates and launch counts checked inside)
+    t0 = time.perf_counter()
+    features = run_decode_features(FULL_CONFIG, prompt_lens, MAX_NEW,
+                                   args.seed, CUDAPlace(0), workdir)
+    features_s = time.perf_counter() - t0
+    for name in ("speculative", "server_spec", "prefix", "int8", "beam"):
+        features[name]["gpu"] = smi
+        emit(features[name])
+    emit({"phase": "decode_features", "seconds": features_s, "gpu": smi})
+    spec_random = features["speculative"]["random"]
 
     # each kernel: its launches on each main path (one training step, a
     # replay of its graph, as the device counts them; the fused-backward
@@ -3661,7 +4358,15 @@ def main(argv=None):
               {"train_step": per_step["K1"],
                "train_step_bhtd": tr["bhtd_launches"]["K1"],
                "generate": sl["device_launches"]["K1"],
-               "server_round": server_launches["K1"]},
+               "server_round": server_launches["K1"],
+               "speculative_generate": spec_random["device_launches"]["K1"],
+               "server_spec_round": features["server_spec"]["main_path"][
+                   "device_launches"]["K1"],
+               "prefix_round": features["prefix"]["main_path"][
+                   "device_launches"]["K1"],
+               "int8_server_round": features["int8"]["main_path"][
+                   "device_launches"]["K1"],
+               "beam_generate": features["beam"]["device_launches"]["K1"]},
               k1["max_abs_err"], k1["ms"], k1["plain_ms"],
               (k1["bound_ms"], k1["bound_by"]), k1["library_ms"],
               generate_host_launches=sl["launches"]["K1"],
@@ -3689,7 +4394,15 @@ def main(argv=None):
         entry("decode_attn", csrc + "decode_attn.cu",
               "paddle_tpu/ops/kv_cache.py:88",
               {"generate": sl["device_launches"]["K3"],
-               "server_round": server_launches["K3"]},
+               "server_round": server_launches["K3"],
+               "speculative_generate": spec_random["device_launches"]["K3"],
+               "server_spec_round": features["server_spec"]["main_path"][
+                   "device_launches"]["K3"],
+               "prefix_round": features["prefix"]["main_path"][
+                   "device_launches"]["K3"],
+               "int8_server_round": features["int8"]["main_path"][
+                   "device_launches"]["K3"],
+               "beam_generate": features["beam"]["device_launches"]["K3"]},
               k3["max_abs_err"], k3["ms"], k3["plain_ms"],
               (k3["bound_ms"], k3["bound_by"]),
               k3["library_ms"], generate_host_launches=sl["launches"]["K3"],

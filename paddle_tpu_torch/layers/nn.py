@@ -21,6 +21,14 @@ __all__ = [
     "fused_attention",
     "decode_attention",
     "cache_append",
+    "cache_append_quant",
+    "decode_attention_quant",
+    "cache_gather",
+    "cache_append_window",
+    "decode_attention_window",
+    "spec_accept",
+    "beam_search",
+    "beam_search_decode",
     "greedy_sample",
     "top_k_sample",
     "top_p_sample",
@@ -270,6 +278,184 @@ def cache_append(cache, new, pos, name=None):
         attrs={},
     )
     return out
+
+
+def cache_append_quant(cache, scales, new, pos, name=None):
+    """Quantized slab append: the float row ``new`` (B, 1, ...) lands in
+    the int8 slab ``cache`` (B, S, ...) at row ``pos[b]``, quantized
+    against a fresh per-row scale stored in ``scales`` (B, S) at the
+    same position, both in place. Returns (new_cache, new_scales);
+    kernel: ops/quant.py."""
+    helper = LayerHelper("cache_append_quant", name=name)
+    out = helper.create_variable_for_type_inference(
+        cache.dtype, shape=cache.shape)
+    out_scales = helper.create_variable_for_type_inference(
+        scales.dtype, shape=scales.shape)
+    helper.append_op(
+        type="cache_append_quant",
+        inputs={"Cache": [cache], "Scales": [scales], "New": [new],
+                "Pos": [pos]},
+        outputs={"Out": [out], "OutScales": [out_scales]},
+        attrs={},
+    )
+    return out, out_scales
+
+
+def decode_attention_quant(q, k_cache, k_scales, v_cache, v_scales,
+                           lengths, scale=None, block_s=None, name=None):
+    """``decode_attention`` over int8 K/V slabs with per-(slot,
+    position) scales: the slabs dequantize, then the decode dispatch runs
+    (K3 on the card; kernel: ops/quant.py)."""
+    helper = LayerHelper("decode_attention_quant", name=name)
+    out = helper.create_variable_for_type_inference(q.dtype, shape=q.shape)
+    helper.append_op(
+        type="decode_attention_quant",
+        inputs={"Q": [q], "KCache": [k_cache], "KScales": [k_scales],
+                "VCache": [v_cache], "VScales": [v_scales],
+                "Lengths": [lengths]},
+        outputs={"Out": [out]},
+        attrs={"scale": scale, "block_s": block_s or _DEFAULT_ATTN_BLOCK_K},
+    )
+    return out
+
+
+def cache_gather(cache, index, name=None):
+    """Reorder KV-slab slot rows: out[i] = cache[index[i]] (beam-search
+    parent reordering; kernel: ops/kv_cache.py). The output's row count
+    is the product of Index's dims (the kernel flattens it)."""
+    helper = LayerHelper("cache_gather", name=name)
+    n = None
+    if index.shape is not None and all(d is not None and d >= 0
+                                       for d in index.shape):
+        n = _prod(index.shape)
+    out = helper.create_variable_for_type_inference(
+        cache.dtype, shape=(n,) + tuple(cache.shape)[1:])
+    helper.append_op(
+        type="cache_gather",
+        inputs={"Cache": [cache], "Index": [index]},
+        outputs={"Out": [out]},
+        attrs={},
+    )
+    return out
+
+
+def cache_append_window(cache, new, pos, name=None):
+    """Append T rows per sequence into a KV slab: ``new`` (B, T, ...)
+    lands at rows ``pos[b]..pos[b]+T-1`` of ``cache`` (B, S, ...), in
+    place; rows past S-1 are dropped (kernel: ops/speculative.py)."""
+    helper = LayerHelper("cache_append_window", name=name)
+    out = helper.create_variable_for_type_inference(
+        cache.dtype, shape=cache.shape)
+    helper.append_op(
+        type="cache_append_window",
+        inputs={"Cache": [cache], "New": [new], "Pos": [pos]},
+        outputs={"Out": [out]},
+        attrs={},
+    )
+    return out
+
+
+def decode_attention_window(q, k_cache, v_cache, lengths, scale=None,
+                            name=None):
+    """T-query decode attention with the staircase window mask: window
+    query i attends ``lengths[b] + i + 1`` slab rows, what T sequential
+    ``decode_attention`` steps would see, in one op (kernel:
+    ops/speculative.py)."""
+    helper = LayerHelper("decode_attention_window", name=name)
+    out = helper.create_variable_for_type_inference(q.dtype, shape=q.shape)
+    helper.append_op(
+        type="decode_attention_window",
+        inputs={"Q": [q], "KCache": [k_cache], "VCache": [v_cache],
+                "Lengths": [lengths]},
+        outputs={"Out": [out]},
+        attrs={"scale": scale},
+    )
+    return out
+
+
+def spec_accept(proposed, logits, name=None):
+    """In-graph speculative accept/reject: window tokens ``proposed``
+    (B, T) vs target ``logits`` (B, T, V) -> (next_ids (B, T) int64,
+    accept (B,) int32 longest-matching-prefix count) (kernel:
+    ops/speculative.py)."""
+    helper = LayerHelper("spec_accept", name=name)
+    b = proposed.shape[0] if proposed.shape else None
+    t = proposed.shape[1] if proposed.shape and len(proposed.shape) > 1 \
+        else None
+    next_ids = helper.create_variable_for_type_inference(
+        "int64", shape=(b, t))
+    accept = helper.create_variable_for_type_inference(
+        "int32", shape=(b,))
+    helper.append_op(
+        type="spec_accept",
+        inputs={"Proposed": [proposed], "Logits": [logits]},
+        outputs={"NextIds": [next_ids], "Accept": [accept]},
+        attrs={},
+    )
+    return next_ids, accept
+
+
+def beam_search(pre_ids, pre_scores, ids, scores, beam_size, end_id, level=0,
+                name=None):
+    """One decode step over dense (B, K) beams. ``scores`` are
+    ACCUMULATED log-probs (B, K, V); finished beams (pre_id == end_id)
+    only propose end_id with their score unchanged. Returns
+    (selected_ids, selected_scores, parent_idx), each (B, beam_size).
+    ``level`` is accepted for source compatibility (kernel:
+    ops/decode.py)."""
+    helper = LayerHelper("beam_search", name=name)
+    b = pre_ids.shape[0]
+    sel_ids = helper.create_variable_for_type_inference(
+        "int32", shape=(b, beam_size))
+    sel_scores = helper.create_variable_for_type_inference(
+        scores.dtype, shape=(b, beam_size))
+    parent_idx = helper.create_variable_for_type_inference(
+        "int32", shape=(b, beam_size))
+    inputs = {"pre_ids": [pre_ids], "pre_scores": [pre_scores],
+              "scores": [scores]}
+    if ids is not None:
+        inputs["ids"] = [ids]
+    helper.append_op(
+        type="beam_search",
+        inputs=inputs,
+        outputs={"selected_ids": [sel_ids], "selected_scores": [sel_scores],
+                 "parent_idx": [parent_idx]},
+        attrs={"beam_size": beam_size, "end_id": end_id},
+    )
+    return sel_ids, sel_scores, parent_idx
+
+
+def beam_search_decode(ids, scores, beam_size=None, end_id=0, parent_idx=None,
+                       name=None):
+    """Backtrack the stacked per-step beam selections: ``ids``/``scores``
+    are (steps, B, K) stacks of beam_search outputs and ``parent_idx``
+    the matching parent pointers. Returns (sentence_ids (B, K, steps),
+    sentence_scores (B, K)); with scores=None (sentence_ids,
+    sentence_lengths (B, K) int32) (kernel: ops/decode.py)."""
+    if parent_idx is None:
+        raise ValueError(
+            "beam_search_decode needs the stacked parent_idx produced by "
+            "beam_search (dense backtracking replaces LoD lineage)")
+    helper = LayerHelper("beam_search_decode", name=name)
+    s, b, k = ids.shape
+    sent_ids = helper.create_variable_for_type_inference(
+        "int32", shape=(b, k, s))
+    sent_lens = helper.create_variable_for_type_inference(
+        "int32", shape=(b, k))
+    outputs = {"SentenceIds": [sent_ids], "SentenceLengths": [sent_lens]}
+    inputs = {"Ids": [ids], "ParentIdx": [parent_idx]}
+    if scores is not None:
+        sent_scores = helper.create_variable_for_type_inference(
+            scores.dtype, shape=(b, k))
+        inputs["Scores"] = [scores]
+        outputs["SentenceScores"] = [sent_scores]
+    helper.append_op(
+        type="beam_search_decode", inputs=inputs, outputs=outputs,
+        attrs={"end_id": end_id},
+    )
+    if scores is not None:
+        return sent_ids, sent_scores
+    return sent_ids, sent_lens
 
 
 def greedy_sample(logits, name=None):

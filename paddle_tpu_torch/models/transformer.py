@@ -1,7 +1,11 @@
 """The flagship decoder LM's graphs (counterpart of
 paddle_tpu/models/transformer.py): the training graph ``transformer_lm``
 with its ``multi_head_attention`` and ``decoder_layer``, and the serving
-graphs ``transformer_lm_prefill`` and ``transformer_lm_decode``.
+graphs ``transformer_lm_prefill``, ``transformer_lm_decode`` (fp32 or
+int8 slabs, at any depth up to the model's: the speculative draft is the
+same builder at ``draft_n_layer`` layers) and ``transformer_lm_verify``
+(the speculative verify window, also the prefix store's suffix
+extension).
 
 ``transformer_lm`` builds the JAX package's program op for op (fused
 attention in the BTHD layout, or BHTD under ``PADDLE_TPU_ATTN_BTHD=0``;
@@ -14,7 +18,8 @@ loads into them directly. That only holds when the layer-creation ORDER
 matches exactly: build under ``unique_name.guard()`` and keep the
 layer_norm call sequence identical (2 per layer + 1 final).
 
-Not ported yet: ring attention, fused q/k/v projections, the unfused
+Not ported yet: ring attention (queue 1 item 7, multi-device), fused
+q/k/v projections, the unfused
 attention and LM-head paths, cross-attention (the encoder-decoder model),
 mixture-of-experts FFNs and dropout; each raises NotImplementedError.
 """
@@ -70,7 +75,8 @@ def _embed(ids, vocab_size, d_model, max_len, name):
 
 
 def _cached_self_attention(h, n_head, d_model, name, k_cache=None,
-                           v_cache=None, lengths=None, kv_lengths=None):
+                           v_cache=None, lengths=None, kv_lengths=None,
+                           k_scale=None, v_scale=None, window=False):
     """transformer_lm's self-attention with its K/V exposed (dense mode).
 
     Prefill mode (no caches): full causal flash attention over (B, S);
@@ -78,8 +84,17 @@ def _cached_self_attention(h, n_head, d_model, name, k_cache=None,
     mode (caches given): h is (B, 1, D); the step's k/v rows append into
     the slabs at ``lengths`` and a single-query decode_attention runs
     against the updated slabs up to ``kv_lengths`` valid rows; returns
-    (out, new_k_cache, new_v_cache). Parameter names and creation order
-    match the JAX package's builder verbatim."""
+    (out, new_k_cache, new_v_cache). With ``k_scale``/``v_scale`` (B, S)
+    the slabs are int8: appends quantize each fresh row against its own
+    scale and attention dequantizes on read; returns (out, new_k, new_v,
+    new_k_scale, new_v_scale). ``window=True`` (decode mode, h (B, T, D)):
+    the verify / suffix-extension step: T rows append per slot
+    (cache_append_window), THEN T queries attend with the staircase mask
+    (decode_attention_window). Every append writes the slab in place and
+    comes before the attention that reads it: a speculative draft's rows
+    in the same slab are overwritten by the window before they are read.
+    Parameter names and creation order match the JAX package's builder
+    verbatim."""
     B, T, _ = h.shape
     d_head = d_model // n_head
     q = _linear(h, d_model, name + ".q")
@@ -93,6 +108,23 @@ def _cached_self_attention(h, n_head, d_model, name, k_cache=None,
         out = _linear(layers.reshape(ctx, shape=[B, T, d_model]),
                       d_model, name + ".out")
         return out, k, v
+    if window:
+        new_k = layers.cache_append_window(k_cache, k, lengths)
+        new_v = layers.cache_append_window(v_cache, v, lengths)
+        ctx = layers.decode_attention_window(q, new_k, new_v, lengths)
+        out = _linear(layers.reshape(ctx, shape=[B, T, d_model]),
+                      d_model, name + ".out")
+        return out, new_k, new_v
+    if k_scale is not None:
+        new_k, new_ks = layers.cache_append_quant(k_cache, k_scale, k,
+                                                  lengths)
+        new_v, new_vs = layers.cache_append_quant(v_cache, v_scale, v,
+                                                  lengths)
+        ctx = layers.decode_attention_quant(q, new_k, new_ks, new_v,
+                                            new_vs, kv_lengths)
+        out = _linear(layers.reshape(ctx, shape=[B, T, d_model]),
+                      d_model, name + ".out")
+        return out, new_k, new_v, new_ks, new_vs
     new_k = layers.cache_append(k_cache, k, lengths)
     new_v = layers.cache_append(v_cache, v, lengths)
     ctx = layers.decode_attention(q, new_k, new_v, kv_lengths)
@@ -231,10 +263,13 @@ def transformer_lm_prefill(
     projection of each row's final valid position (the hidden state is
     gathered BEFORE the head), caches is [(k_0, v_0), ...] per layer in
     the (B, S, H, Dh) slab layout. Positions past a row's length hold
-    garbage K/V — decode_attention masks them by length. Ring prefill is
-    a later slice."""
+    garbage K/V — decode_attention masks them by length. Ring prefill
+    needs the ring_attention op and an sp mesh: queue 1 item 7
+    (multi-device)."""
     if use_ring_attention:
-        raise NotImplementedError("ring prefill is a later slice of the port")
+        raise NotImplementedError(
+            "ring prefill is a later slice of the port (queue 1 item 7, "
+            "multi-device: the ring_attention op and an sp mesh)")
     x = _embed(tokens, vocab_size, d_model, max_len, prefix)
     B, S = tokens.shape
     caches = []
@@ -263,6 +298,7 @@ def transformer_lm_decode(
     n_layer=4, n_head=8, d_model=512, d_inner=2048, max_len=2048,
     tie_embeddings=False, prefix="lm", strategy="greedy", seed=None,
     sample_k=40, sample_p=0.9, temperature=1.0,
+    k_scales=None, v_scales=None,
 ):
     """One incremental decode step: ``tokens`` (B, 1) int64 (the
     previously sampled token per slot), ``positions`` (B, 1) int64 (its
@@ -275,7 +311,10 @@ def transformer_lm_decode(
     (next_ids, logits, new_caches): next_ids (B,) int64 per ``strategy``
     ("greedy" | "topk" | "topp" | "logits", the last skips sampling);
     the top-k and top-p draws are functions of the ``seed`` feed's value
-    (ops/sampling.py). int8 slabs are a later slice."""
+    (ops/sampling.py). With ``k_scales``/``v_scales`` (per-layer (B, S)
+    tensors) the slabs are int8 and each ``new_caches`` entry is the
+    4-tuple (k, v, k_scales, v_scales). ``n_layer`` below the model's
+    depth builds the speculative draft over the first layers' slabs."""
     B = tokens.shape[0]
     # embedding squeezes the trailing ids dim of 1 (LoD convention):
     # (B, 1) ids -> (B, D); restore the singleton time axis explicitly
@@ -295,11 +334,19 @@ def transformer_lm_decode(
     new_caches = []
     for i in range(n_layer):
         h = _pre_norm(x)
-        attn, nk, nv = _cached_self_attention(
-            h, n_head, d_model, "%s.l%d.self" % (prefix, i),
-            k_cache=k_caches[i], v_cache=v_caches[i], lengths=lengths,
-            kv_lengths=kv_lengths)
-        new_caches.append((nk, nv))
+        if k_scales is not None:
+            attn, nk, nv, nks, nvs = _cached_self_attention(
+                h, n_head, d_model, "%s.l%d.self" % (prefix, i),
+                k_cache=k_caches[i], v_cache=v_caches[i], lengths=lengths,
+                kv_lengths=kv_lengths, k_scale=k_scales[i],
+                v_scale=v_scales[i])
+            new_caches.append((nk, nv, nks, nvs))
+        else:
+            attn, nk, nv = _cached_self_attention(
+                h, n_head, d_model, "%s.l%d.self" % (prefix, i),
+                k_cache=k_caches[i], v_cache=v_caches[i], lengths=lengths,
+                kv_lengths=kv_lengths)
+            new_caches.append((nk, nv))
         x = layers.elementwise_add(x, attn)
         ffn = positionwise_ffn(_pre_norm(x), d_inner, d_model, 0.0,
                                name="%s.l%d.ffn" % (prefix, i))
@@ -321,3 +368,58 @@ def transformer_lm_decode(
         raise ValueError("unknown decode strategy %r (greedy | topk | "
                          "topp | logits)" % (strategy,))
     return next_ids, logits, new_caches
+
+
+def transformer_lm_verify(
+    tokens, positions, lengths, last_idx, k_caches, v_caches, vocab_size,
+    n_layer=4, n_head=8, d_model=512, d_inner=2048, max_len=2048,
+    tie_embeddings=False, prefix="lm",
+):
+    """One speculative VERIFY window (also the prefix store's suffix
+    extension step): ``tokens`` (B, T) int64 (window slot 0 each
+    sequence's committed token, slots 1..T-1 the draft's proposals) at
+    ``positions`` (B, T), ``lengths`` (B,) valid cache rows BEFORE the
+    window, per-layer K/V slabs (B, S, H, Dh).
+
+    Every layer appends its T rows at lengths..lengths+T-1 in place,
+    then runs T-query staircase attention: one step, not T decode steps.
+    Returns (next_ids (B, T) int64, the target's argmax after each
+    window position; accept (B,) int32, the accepted proposals per slot;
+    last_logits (B, V), the logits at window position ``last_idx[b]``;
+    new_caches). Parameter names match the other decode builders, so
+    one loaded state drives every step kind."""
+    B, T = tokens.shape
+    if T < 2:
+        raise ValueError(
+            "verify windows need T >= 2 (one committed token + at least "
+            "one proposal); got T=%d" % T)
+    tok = layers.embedding(
+        input=tokens, size=[vocab_size, d_model],
+        param_attr=ParamAttr(name=prefix + ".tok_emb",
+                             initializer=NormalInitializer(0.0, 0.02)))
+    pos = layers.embedding(
+        input=positions, size=[max_len, d_model],
+        param_attr=ParamAttr(name=prefix + ".pos_emb",
+                             initializer=NormalInitializer(0.0, 0.02)))
+    x = layers.elementwise_add(tok, pos)                   # (B, T, D)
+    new_caches = []
+    for i in range(n_layer):
+        h = _pre_norm(x)
+        attn, nk, nv = _cached_self_attention(
+            h, n_head, d_model, "%s.l%d.self" % (prefix, i),
+            k_cache=k_caches[i], v_cache=v_caches[i], lengths=lengths,
+            window=True)
+        new_caches.append((nk, nv))
+        x = layers.elementwise_add(x, attn)
+        ffn = positionwise_ffn(_pre_norm(x), d_inner, d_model, 0.0,
+                               name="%s.l%d.ffn" % (prefix, i))
+        x = layers.elementwise_add(x, ffn)
+    x = _pre_norm(x)
+    flat = layers.reshape(x, shape=[B * T, d_model])
+    logits = _lm_head_logits(flat, vocab_size, tie_embeddings, prefix)
+    logits3 = layers.reshape(logits, shape=[B, T, vocab_size])
+    next_ids, accept = layers.spec_accept(tokens, logits3)
+    base = layers.assign((np.arange(B, dtype=np.int32) * T).reshape(B))
+    idx = layers.elementwise_add(layers.cast(last_idx, "int32"), base)
+    last_logits = layers.gather(logits, idx)               # (B, V)
+    return next_ids, accept, last_logits, new_caches

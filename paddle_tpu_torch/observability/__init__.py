@@ -38,7 +38,9 @@ __all__ = [
     "SERVER_BUCKET_FILL", "SERVER_INFLIGHT_DEPTH", "SERVER_STAGE_MS",
     "LOADER_BATCHES", "LOADER_BLOCKED_MS", "LOADER_WORKER_BUSY_MS",
     "LOADER_QUEUE_DEPTH", "LOADER_WORKERS", "DECODE_TOKENS", "DECODE_SLOTS",
-    "DECODE_STEP_MS", "DECODE_REQUESTS", "TRAIN_SKIPPED_BATCHES",
+    "DECODE_STEP_MS", "DECODE_REQUESTS", "DECODE_PREFIX_QUERIES",
+    "DECODE_PREFIX_HITS", "DECODE_PREFIX_BYTES", "DECODE_SPEC_PROPOSED",
+    "DECODE_SPEC_ACCEPTED", "TRAIN_SKIPPED_BATCHES",
     "REQUEST_PHASE_MS", "TRACE_SPANS",
 ]
 
@@ -125,6 +127,29 @@ DECODE_REQUESTS = REGISTRY.counter(
     "paddle_tpu_decode_requests_total",
     "Decode-serving sequences, kind=admitted (entered a cache slot) | "
     "retired (finished and freed it); admitted - retired = in flight")
+DECODE_PREFIX_QUERIES = REGISTRY.counter(
+    "paddle_tpu_decode_prefix_queries_total",
+    "Shared-prefix store lookups at admission (one per admitted "
+    "prompt when prefix sharing is on)")
+DECODE_PREFIX_HITS = REGISTRY.counter(
+    "paddle_tpu_decode_prefix_hits_total",
+    "Shared-prefix store hits, by kind=full (whole prompt served from "
+    "cached K/V rows) | partial (cached header + suffix extension) | "
+    "batch (deduped against an identical prompt admitted in the same "
+    "sub-batch); hit rate = hits / queries — the ROADMAP-named signal")
+DECODE_PREFIX_BYTES = REGISTRY.gauge(
+    "paddle_tpu_decode_prefix_bytes",
+    "Resident bytes of prefilled K/V rows in the shared-prefix store "
+    "(bounded by PADDLE_TPU_PREFIX_CACHE_MAX_BYTES; refcounted entries "
+    "are eviction-exempt while sequences decode from them)")
+DECODE_SPEC_PROPOSED = REGISTRY.counter(
+    "paddle_tpu_decode_spec_proposed_total",
+    "Draft tokens proposed to speculative verify windows")
+DECODE_SPEC_ACCEPTED = REGISTRY.counter(
+    "paddle_tpu_decode_spec_accepted_total",
+    "Draft tokens the target accepted; acceptance rate = accepted / "
+    "proposed — the signal that decides whether speculation pays "
+    "(each verified round also emits one bonus token not counted here)")
 TRAIN_SKIPPED_BATCHES = REGISTRY.counter(
     "paddle_tpu_train_skipped_batches_total",
     "Input the hardened training data plane dropped instead of "

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import collections
 import hashlib
+import itertools
 import os
 import threading
 import time
@@ -118,24 +119,53 @@ class GraphStep:
     the device memory the step holds: its buffers and its graph's pool.
     ``buffers`` names tensors to use as static buffers as they are (a
     training step's state: the scope's own tensors, updated in place)
-    beside the ones ``specs`` makes.
+    instead of, or beside, the ones ``specs`` makes; one that stands for
+    a spec must have its shape, dtype and device, or the step raises.
+    With ``lender`` (another GraphStep) the buffers are that step's own
+    static tensors, which this step's graph reads and writes by address
+    (a speculative draft or verify step over its decode step's K/V
+    slabs): they are not counted in ``nbytes``, and the step cache drops
+    this step with its lender.
     """
 
     WARMUP = 2
+    _serials = itertools.count()
 
     def __init__(self, eager: Callable[[Dict[str, torch.Tensor]], Tuple],
                  specs: Sequence, device, name: str = "step",
                  warmup: Optional[Callable] = None,
-                 buffers: Optional[Dict[str, torch.Tensor]] = None):
+                 buffers: Optional[Dict[str, torch.Tensor]] = None,
+                 lender: Optional["GraphStep"] = None):
         self.eager = eager
         self.warmup = eager if warmup is None else warmup
         self.name = name
         self.kind = "step"       # the Engine's kind, set when it builds it
         self.device = torch.device(device)
-        self.static = {n: torch.zeros(tuple(shape), dtype=dtype,
-                                      device=self.device)
-                       for n, shape, dtype in specs}
-        self.static.update(buffers or {})
+        self.serial = next(GraphStep._serials)
+        buffers = dict(buffers or {})
+        self.static = {}
+        for n, shape, dtype in specs:
+            buf = buffers.get(n)
+            if buf is None:
+                self.static[n] = torch.zeros(tuple(shape), dtype=dtype,
+                                             device=self.device)
+            elif (tuple(buf.shape) != tuple(shape) or buf.dtype != dtype
+                  or buf.device != self.device):
+                raise ValueError(
+                    "step %s: buffer %r is %s %s on %s; the step takes %s "
+                    "%s on %s" % (name, n, tuple(buf.shape), buf.dtype,
+                                  buf.device, tuple(shape), dtype,
+                                  self.device))
+        self.static.update(buffers)
+        self.lender = lender
+        self._lent = frozenset()
+        if lender is not None:
+            foreign = sorted(n for n, b in buffers.items()
+                             if lender.static.get(n) is not b)
+            if foreign:
+                raise ValueError("step %s: buffers %s are not step %s's"
+                                 % (name, foreign, lender.name))
+            self._lent = frozenset(buffers)
         self.captures = 0
         self.replays = 0
         self.pool_bytes = 0
@@ -157,7 +187,8 @@ class GraphStep:
     @property
     def nbytes(self) -> int:
         return self.pool_bytes + sum(b.numel() * b.element_size()
-                                     for b in self.static.values())
+                                     for n, b in self.static.items()
+                                     if n not in self._lent)
 
     def __call__(self, feeds, read=None):
         return self._run(feeds, read, self.device.type == "cuda")
@@ -309,7 +340,10 @@ class StepCache:
     its owner (a DecodeServer's decode step, whose static buffers are the
     server's live K/V slabs) runs it for a lifetime of its own and hands
     it back with ``release``, which drops it from the cache. Its bytes
-    still count against the bound, so the others make room."""
+    still count against the bound, so the others make room. A step whose
+    buffers another step lends (``GraphStep.lender``) leaves the cache
+    with its lender, evicted or released, and the lender of the step
+    just built is not evicted to make room for it."""
 
     def __init__(self, max_bytes: Optional[int] = None):
         self._max_bytes = max_bytes
@@ -354,11 +388,16 @@ class StepCache:
         buffers go with the last reference); not counted as an
         eviction."""
         with self._lock:
-            for key, s in list(self._steps.items()):
-                if s is step:
-                    del self._steps[key]
-                    self._pinned.discard(key)
-                    self._evicted_captures += step.captures
+            for key, s in self._with_borrowers(step):
+                del self._steps[key]
+                self._pinned.discard(key)
+                self._evicted_captures += s.captures
+
+    def _with_borrowers(self, step) -> List:
+        """(key, step) of ``step`` and of every cached step that borrows
+        its buffers."""
+        return [(key, s) for key, s in self._steps.items()
+                if s is step or s.lender is step]
 
     def _captured(self, step) -> None:
         with self._lock:
@@ -374,14 +413,19 @@ class StepCache:
         for key in list(self._steps):
             if total <= self._max_bytes:
                 break
-            step = self._steps[key]
-            if step is keep or key in self._pinned:
+            step = self._steps.get(key)
+            if step is None or step is keep or key in self._pinned or \
+                    (keep is not None and keep.lender is step):
                 continue
-            del self._steps[key]
-            total -= step.nbytes
-            self.evictions += 1
-            self._evicted_captures += step.captures
-            obs.CACHE_EVICTIONS.inc(kind=step.kind)
+            gone = self._with_borrowers(step)
+            if any(s is keep or k in self._pinned for k, s in gone):
+                continue
+            for k, s in gone:
+                del self._steps[k]
+                total -= s.nbytes
+                self.evictions += 1
+                self._evicted_captures += s.captures
+                obs.CACHE_EVICTIONS.inc(kind=s.kind)
 
     def clear(self) -> None:
         """Drop every step, with its graph, pool and buffers (not counted
@@ -584,21 +628,35 @@ class Engine:
 
     def graph_step(self, kind: str, specs: Sequence, state, device,
                    *extra, check: Optional[Callable[[], None]] = None,
-                   pin: bool = False) -> GraphStep:
+                   pin: bool = False, lender: Optional[GraphStep] = None,
+                   lent: Sequence[str] = ()) -> GraphStep:
         """The GraphStep of this program at the feed specs ``(name, shape,
         torch dtype)``, looked up by ``key`` (``extra`` completes it)
         through ``acquire`` on every call; ``check()`` runs before a
-        build; ``pin`` pins the step (StepCache)."""
+        build; ``pin`` pins the step (StepCache). With ``lender`` the
+        feeds named ``lent`` are that step's static tensors (GraphStep's
+        ``lender``), and its serial completes the key: the step is that
+        lender's only."""
         feed_sig = feed_signature(specs)
         fetches = tuple(self.fetch_names)
+        if lender is not None:
+            extra = extra + ("lender", lender.serial)
         key = self.key(kind, feed_sig, fetches, *extra)
 
         def build():
             if check is not None:
                 check()
+            buffers = None
+            if lender is not None:
+                missing = sorted(n for n in lent if n not in lender.static)
+                if missing:
+                    raise ValueError("step %s has no buffers %s to lend"
+                                     % (lender.name, missing))
+                buffers = {n: lender.static[n] for n in lent}
             return GraphStep(self.eager(state, device), specs, device,
                              name="%s %s %s" % (kind, self.fingerprint(),
-                                                key[:8]))
+                                                key[:8]),
+                             buffers=buffers, lender=lender)
 
         return self.acquire(kind, key, build,
                             meta=lambda: self.meta(kind, feed_sig, fetches),

@@ -9,7 +9,7 @@ more requests than slots. Then the port's own contracts: zero-drop stop, an
 injected step failure, an oversized prompt, the decode series at
 /metrics, the server's OWN decode step (pinned in the step cache while a
 concurrent generate at the same bucket runs, released at stop), and the
-arguments that are a later slice."""
+arguments of the later slices (served now; ring prefill still raises)."""
 import threading
 import urllib.request
 
@@ -360,14 +360,37 @@ def test_seeded_topk_server_round(pred):
     ({"prefix_store": object()}, "prefix"),
     ({"kv_dtype": "int8"}, "int8")])
 def test_later_slice_arguments_raise(pred, kwargs, what):
-    with pytest.raises(NotImplementedError, match=what):
-        pt_decode.DecodeServer(pred, **kwargs)
+    """Speculative decoding, prefix sharing and int8 slabs are served
+    now (tests/test_torch_speculative.py, test_torch_prefix.py,
+    test_torch_quant_kv.py): each argument builds a server, and each
+    raises the JAX package's ValueError beside an option it does not
+    combine with."""
+    pt_decode.DecodeServer(pred, **kwargs)
+    clash = {"speculative": {"strategy": "topk"},
+             "prefix": {"kv_dtype": "int8"},
+             "int8": {"speculative": True}}[what]
+    with pytest.raises(ValueError, match=what):
+        pt_decode.DecodeServer(pred, **kwargs, **clash)
 
 
 def test_later_slice_strategies_raise(pred):
-    with pytest.raises(NotImplementedError, match="beam"):
-        pred.generate(_prompts(1), 4, strategy="beam")
-    with pytest.raises(NotImplementedError, match="speculative"):
-        pred.generate(_prompts(1), 4, speculative=True)
+    """Beam search and speculative decoding run now; what is still a
+    later slice raises: ring prefill (multi-device, queue 1 item 7). A
+    speculative generate is greedy only, and a server streams one token
+    a step."""
+    from paddle_tpu_torch.models import transformer as pt_T
+
+    assert len(pred.generate(_prompts(1), 4, strategy="beam")[0]) == 4
+    assert len(pred.generate(_prompts(1), 4, speculative=True)[0]) == 4
+    with pytest.raises(ValueError, match="greedy only"):
+        pred.generate(_prompts(1), 4, strategy="topk", speculative=True)
     with pytest.raises(ValueError, match="one token per step"):
         pt_decode.DecodeServer(pred, strategy="logits")
+    with pt.program_guard(pt.Program(), pt.Program()):
+        tokens = pt.layers.data(name="tokens", shape=[1, 16],
+                                dtype="int64", append_batch_size=False)
+        lengths = pt.layers.data(name="lengths", shape=[1], dtype="int32",
+                                 append_batch_size=False)
+        with pytest.raises(NotImplementedError, match="item 7"):
+            pt_T.transformer_lm_prefill(tokens, lengths, V,
+                                        use_ring_attention=True)

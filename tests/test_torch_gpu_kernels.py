@@ -594,6 +594,62 @@ def test_captured_steps_match_their_eager_functions(tiny_lm):
 
 
 @pytest.mark.gpu
+def test_draft_verify_and_int8_steps_match_their_eager_functions(tiny_lm):
+    """The draft and verify steps, captured over their decode step's own
+    slabs (same data_ptr), and the int8 decode step: each replay equals
+    its eager function on the same buffers bitwise (each step writes the
+    same rows each call); speculative and beam generates run on the card,
+    speculative equal to greedy."""
+    import numpy as np
+
+    pred = tiny_lm
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, 97, n) for n in (20, 9, 13)]
+    tokens, lens, _b, s = pred._bucketed(prompts, 8)
+    bb, t = tokens.shape[0], 5
+    dstep, _ = pred.acquire("decode", bb, s)
+    pred._prefill(tokens, lens, s, pred._slabs(dstep))
+    draft, _ = pred.acquire("draft", bb, s, lender=dstep)
+    verify, _ = pred.acquire("verify", bb, s, window=t, lender=dstep)
+    for step in (draft, verify):
+        assert step.lender is dstep
+        assert all(step.static[n].data_ptr() == dstep.static[n].data_ptr()
+                   for n in step.static if "cache_" in n)
+    common = {"lengths": lens, "tokens": tokens[:, :1]}
+    draft_feeds = dict(common, positions=lens.reshape(bb, 1).astype(
+        np.int64), seed=np.zeros((1,), np.int64))
+    verify_feeds = {"tokens": tokens[:, :t], "lengths": lens,
+                    "positions": (lens[:, None] + np.arange(t)).astype(
+                        np.int64),
+                    "last_idx": np.full((bb,), t - 1, np.int32)}
+    q8, _ = pred.acquire("decode", bb, s, kv_dtype="int8")
+    q8_feeds = {"tokens": tokens[:, :1], "lengths": lens,
+                "positions": lens.reshape(bb, 1).astype(np.int64),
+                "seed": np.zeros((1,), np.int64)}
+    for name in q8.static:
+        if "cache_" in name or "scale_" in name:
+            q8.static[name].copy_(torch.randint(
+                -127, 128, q8.static[name].shape, device="cuda")
+                if "cache_" in name else torch.rand(
+                    q8.static[name].shape, device="cuda") * 0.02)
+    for step, feeds in ((draft, draft_feeds), (verify, verify_feeds),
+                        (q8, q8_feeds)):
+        feeds = dict(feeds)
+        feeds.update({n: b for n, b in step.static.items()
+                      if "cache_" in n or "scale_" in n})
+        got = step(feeds, read=_clone)
+        want = step.run_eager(feeds, read=_clone)
+        assert step.captured
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    spec = pred.generate(prompts, 8, speculative=True, spec_k=4)
+    for g, w in zip(spec, pred.generate(prompts, 8)):
+        assert np.array_equal(g, w)
+    assert len(pred.generate(prompts[:2], 4, strategy="beam",
+                             beam_size=3)[0]) == 4
+
+
+@pytest.mark.gpu
 def test_decode_graphs_replayed_on_two_streams(tiny_lm):
     """Two captured decode steps of one bucket (two predictors: the same
     B*H), replayed at once on two streams, give their eager functions'

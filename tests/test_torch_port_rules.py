@@ -474,6 +474,59 @@ def test_chip_smoke_servers_rehearse_on_cpu(tmp_path):
         assert not os.path.exists(os.path.join(str(tmp_path), name))
 
 
+def test_chip_smoke_decode_features_rehearse_on_cpu(tmp_path):
+    """chip_smoke's phases 11-15 at a tiny size on the CPU: speculative
+    generate against greedy on a random and a favourable export, the
+    speculative server against a plain one, the prefix-sharing server
+    against a private one, the int8 server, beam search; every gate holds
+    (chip_smoke fails otherwise) and no launch is counted on the CPU."""
+    sys.path.insert(0, ROOT)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(ROOT)
+    cfg = dict(vocab_size=61, n_layer=2, n_head=2, d_model=32, d_inner=64,
+               max_len=128)
+    lines = chip_smoke.run_decode_features(
+        cfg, np.array([20, 9, 13]), 6, 0, pt.CPUPlace(), str(tmp_path),
+        server_prompts=(4, 40), budget_mix=(3, 6),
+        prefix_sizes=(16, 4, (2, 6)), beam_new=5)
+    json.dumps(lines)
+    sp = lines["speculative"]
+    for name in ("random", "favourable"):
+        res = sp[name]
+        assert res["equal_to_first"] and res["tokens_differing_from_greedy"] \
+            == 0 and res["draft_verify_share_decode_slabs"]
+        assert len(res["tokens_per_s"]["speculative"]) == 2
+        assert all(r > 0 for r in res["rounds"])
+    assert sp["favourable"]["acceptance_rate"] >= \
+        chip_smoke.SPEC_FAVOURABLE_ACCEPTANCE
+    ss = lines["server_spec"]
+    assert ss["tokens_differing_from_plain_server"] == 0
+    assert ss["draft_verify_share_server_slabs"]
+    assert ss["rounds_equal_to_warm"] == {"plain": [True] * 2,
+                                          "speculative": [True] * 2}
+    px = lines["prefix"]
+    assert px["tokens_differing_from_private"] == 0
+    assert px["fill"] == dict(px["fill"], prefill_executions=4,
+                              unique_misses=4, entries=4)
+    assert px["warm_shared"]["prefill_executions"] == 0
+    hits = px["warm_shared"]["hits"]
+    assert hits["full"] == hits["partial"] == 12 and hits["batch"] == 0
+    assert all(st["prefill_executions"] == 0 for st in px["shared"])
+    pm = px["main_path"]
+    assert pm["prefill_executions"] == 4 and pm["verify_window_calls"] >= 1
+    assert pm["decode_steps"] > 0 and "device_launches" not in pm
+    q8 = lines["int8"]
+    assert q8["step_vs_plain_max_abs"] == 0.0
+    assert q8["slab_gb"] < q8["fp32_slab_gb"] / 2
+    bm = lines["beam"]
+    assert bm["beam1_equals_greedy"] and bm["scores_ordered"]
+    assert bm["steps"] == 4
+    for name in ("features_model", "favourable_model"):
+        assert not os.path.exists(os.path.join(str(tmp_path), name))
+
+
 def test_chip_smoke_train_amp_rehearses_on_cpu(tmp_path):
     """chip_smoke's bf16 AMP phase at a tiny size on the CPU: built as
     bench.py builds its LM (minimize, then O2), steps through the graph
