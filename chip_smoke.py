@@ -110,6 +110,37 @@ Each phase prints one JSON line:
    window with the prefetch on and off (ms per step, the host's pull
    ms), the first window against run_loop over the same batches as
    per_step_feeds, and EOFException on the third call.
+   train_files: that program fed from recordio files (open_files, and a
+   DataLoader), each window against per_step_feeds; input_pipeline: the
+   host's batches/s of a loader, no card.
+   nmt: first K1, K2, K4 and their bf16 twins at its attention shapes
+   (B 32, T 256, 8 heads of 64, BTHD, non-causal over the source lengths
+   and causal over the target lengths; the "nmt attention shapes" line,
+   each kernel's nmt_max_abs_err on the kernels line); then
+   get_model's encoder-decoder Transformer at Transformer-base
+   width (NMT_CONFIG: 6 + 6 layers, d_model 512, 8 heads of 64, d_inner
+   2048, vocabularies of 10,000), batch 32 at source and target length
+   256 with lengths from --seed in 64..256, Adam, in fp32 and in bf16 O2,
+   each at dropout 0 and 0.1: one line each (run_nmt). Timed and
+   profiled as train is (step ms, target tokens/s, peak memory, the
+   graph's pool GB, idle share; the main path's step one graph launch:
+   at dropout 0, 18 K1, K2-dq and K2-dkv (or their bf16 twins) counted on
+   the device inside it, 6 encoder, 6 decoder and 6 cross-attentions; at
+   dropout 0.1 none, by the reference's dispatch of attention dropout);
+   the graph step against the same step op by op from one state and one
+   step of the random stream (bitwise, or compare_steps / compare_amp);
+   at dropout 0 the kernel step against the plain attention step (fp32:
+   with every ReLU pinned to the kernel step's signs, the flipped units
+   counted; relu_flips) and the
+   step with PADDLE_TPU_FLASH_FUSED_BWD=1 (18 K4); at
+   dropout 0.1 every dropout op's mask in two successive steps (they
+   differ, each keeps 0.9 within KEEP_SIGMAS) and the device ms of the
+   draws beside torch's Philox draw. lm_variants: TRAIN_CONFIG in bf16
+   O2 with fused_qkv=True (made from the separate projections' weights)
+   and with fused_head=False, against the separate-projection,
+   fused-head step from one state (gates at the top of this file), the
+   fused q/k/v step timed beside the separate one in turns, 12 of each
+   bf16 kernel in their replays.
 5. slice: the flagship serving config at full width (vocab 32768, 12
    layers, d_model 1024, 8 heads, d_inner 4096, max_len 2048), random
    weights from --seed. The export is written with save_decode_model,
@@ -292,7 +323,10 @@ LOGITS_TOL = 1e-3
 # dq and dk are sums whose terms nearly cancel (sum_j dS_ij = 0): they,
 # and through the residual stream every layer below, move by ~1e-4 of
 # their size (median 1.4e-4, worst 3.3e-3 on an H100 at the training
-# config): PATH_GRAD_RTOL. A key projection's bias
+# config): PATH_GRAD_RTOL. The NMT step is held to the all-plain step at
+# GRAD_RTOL with every ReLU pinned to the kernel step's signs
+# (relu_pinned): unpinned, a unit whose input lies within those last bits
+# of 0 passes the gradient in one step only. A key projection's bias
 # has a gradient that is zero up to rounding (softmax does not see a
 # per-query constant): held to 1e-5 of the largest gradient instead.
 # Parameters after the Adam update: Adam divides each gradient by its
@@ -408,6 +442,19 @@ LOOP_WARMUP, LOOP_STEPS = 3, 12
 # double_buffer (enough to hold a window of batches; no third full-size
 # capture)
 FILES_LOADER_WORKERS, FILES_WINDOW_LAYERS = 2, 2
+# the nmt phase: get_model's encoder-decoder Transformer at Transformer-base
+# width (Vaswani et al. 2017, Table 3 "base": 6 + 6 layers, d_model 512, 8
+# heads of 64, d_inner 2048, dropout 0.1) and get_model's vocabularies of
+# 10,000; batch 32 at source and target length 256, each row's lengths
+# drawn from --seed in NMT_MIN_LEN..256 (row 0 full); Adam; run at
+# dropout 0 and NMT_DROPOUT, in fp32 and in bf16 O2
+NMT_CONFIG = dict(src_vocab_size=10000, tgt_vocab_size=10000, n_layer=6,
+                  n_head=8, d_model=512, d_inner=2048)
+NMT_BATCH, NMT_SEQ, NMT_MIN_LEN = 32, 256, 64
+NMT_LR, NMT_DROPOUT, NMT_WARM, NMT_STEPS = 1e-4, 0.1, 2, 3
+# a dropout mask of n elements keeps n (1 - p) of them give or take
+# KEEP_SIGMAS binomial standard deviations, sqrt(n p (1 - p))
+KEEP_SIGMAS = 6
 
 
 def fail(msg):
@@ -3195,7 +3242,7 @@ class _Trainer:
     by the host and, inside replays, by the device's counters."""
 
     def __init__(self, exe, scope, main, loss, config, batch, seq, seed,
-                 keys, workdir):
+                 keys, workdir, feed=None, tokens=None):
         import torch
 
         self.torch = torch
@@ -3203,13 +3250,17 @@ class _Trainer:
         self.keys, self.workdir = keys, workdir
         self.cuda = exe.device.type == "cuda"
         self.batch, self.seq = batch, seq
+        # the tokens a step trains on (tokens_per_s)
+        self.tokens = batch * seq if tokens is None else tokens
         self.params = [p.name for p in main.all_parameters()]
         self.grads = [n + "@GRAD" for n in self.params]
         self.n_params = sum(scope.find_var(n).numel() for n in self.params)
-        rng = np.random.default_rng(seed + 2)
-        self.feed = {k: torch.from_numpy(rng.integers(
-            0, config["vocab_size"], (batch, seq))).to(exe.device)
-            for k in ("ids", "labels")}
+        if feed is None:
+            rng = np.random.default_rng(seed + 2)
+            feed = {k: torch.from_numpy(rng.integers(
+                0, config["vocab_size"], (batch, seq))).to(exe.device)
+                for k in ("ids", "labels")}
+        self.feed = feed
 
     def sync(self):
         if self.cuda:
@@ -3267,7 +3318,7 @@ class _Trainer:
             fail("training losses are not finite: %s" % modes)
         for got in modes.values():
             got["step_ms_mean"] = float(np.mean(got["step_ms"]))
-            got["tokens_per_s"] = (self.batch * self.seq
+            got["tokens_per_s"] = (self.tokens
                                    / (got["step_ms_mean"] / 1e3))
         graph, eager = modes["graph"], modes["eager"]
         res = {"setup_s": setup_s, "warm_steps": warm, "steps": steps,
@@ -3318,11 +3369,14 @@ class _Trainer:
         for name, val in saved.items():
             self.scope.set_var(name, val.clone())
 
-    def one_step(self, program, saved, ctx, eager=False):
+    def one_step(self, program, saved, ctx, eager=False, step=None):
         """One step of ``program`` from ``saved`` under ``ctx``, through
-        its graph or (``eager``) op by op: ((loss, {@GRAD}, {param}),
-        host launch counts), every tensor a copy."""
+        its graph or (``eager``) op by op, as the program's step ``step``
+        when given (its random stream's position): ((loss, {@GRAD},
+        {param}), host launch counts), every tensor a copy."""
         self.restore(saved)
+        if step is not None:
+            self.exe.set_program_steps(program, step)
         _launch_counts(reset=True)
         with ctx, eager_steps() if eager else contextlib.nullcontext():
             outs = self.exe.run(program, self.feed, [self.loss] + self.grads,
@@ -3921,6 +3975,494 @@ def input_pipeline(workers=2, sample_kb=16, batch=16, n_batches=48,
 
 
 # ---------------------------------------------------------------------------
+# the nmt and lm_variants phases: the dense Transformer's other paths
+# ---------------------------------------------------------------------------
+
+
+def build_nmt(config, batch, seq, lr, seed, dropout, amp_level=None):
+    """get_model's encoder-decoder transformer_nmt + Adam(lr).minimize,
+    built as a user would, then, with ``amp_level``, set to bf16 AMP as
+    bench.py sets its LM: returns (main, startup, loss)."""
+    from paddle_tpu_torch import (Program, optimizer, program_guard,
+                                  unique_name)
+    from paddle_tpu_torch.models import transformer
+
+    main, startup = Program(), Program()
+    main.random_seed = startup.random_seed = seed
+    with program_guard(main, startup), unique_name.guard():
+        loss, _, _ = transformer.get_model(
+            batch_size=batch, seq_len=seq, dropout_rate=dropout, **config)
+        optimizer.Adam(learning_rate=lr).minimize(loss)
+        if amp_level:
+            main.enable_mixed_precision(level=amp_level)
+    return main, startup, loss
+
+
+def nmt_feed(config, batch, seq, min_len, seed, device):
+    """The NMT step's feeds from ``seed``: token ids in the vocabularies,
+    source and target lengths drawn in min_len..seq, row 0 at seq."""
+    import torch
+
+    rng = np.random.default_rng(seed + 3)
+    feed = {}
+    for side in ("src", "tgt"):
+        feed[side + "_ids"] = rng.integers(
+            0, config[side + "_vocab_size"], (batch, seq))
+        lens = rng.integers(min_len, seq + 1, batch)
+        lens[0] = seq
+        feed[side + "_len"] = lens.astype(np.int32)
+    feed["lbl_ids"] = rng.integers(0, config["tgt_vocab_size"], (batch, seq))
+    return {k: torch.from_numpy(v).to(device) for k, v in feed.items()}
+
+
+def keep_share(mask, p):
+    """The kept share of a dropout mask and its distance from 1 - p in
+    binomial standard deviations."""
+    n = mask.numel()
+    kept = float(mask.double().sum())
+    return kept / n, (kept - n * (1 - p)) / (n * p * (1 - p)) ** 0.5
+
+
+def dropout_draws(config, batch, seq, p, amp_level, seed, device):
+    """The device ms of one draw of each dropout of the NMT step (REPS
+    draws in a graph, CUDA events), on the counter-based hash
+    (ops/rng.py): the FFN's mask and its dropout on a (batch, seq,
+    d_inner) activation, one attention block's mask (batch, heads, seq,
+    seq); beside them torch's Philox draw of the FFN's mask (torch.rand,
+    the generator a capture registers), a yardstick the port does not
+    call. Also the kept share of an attention block's mask, and on the
+    card 2**20 of the hash's values against the CPU's (equal)."""
+    import torch
+    from paddle_tpu_torch.ops import rng as prng
+
+    dtype = torch.bfloat16 if amp_level else torch.float32
+    x = torch.randn((batch, seq, config["d_inner"]), device=device,
+                    dtype=dtype)
+    zero = torch.zeros((), dtype=dtype, device=device)
+    key = prng.counter_key(torch.tensor([seed, 1], device=device))
+    att = (batch, config["n_head"], seq, seq)
+    share, sigmas = keep_share(prng.keep_mask(prng.fold(key, 0), att, p), p)
+    if sigmas > KEEP_SIGMAS or sigmas < -KEEP_SIGMAS:
+        fail("attention dropout keeps %.6f of a block (%.1f sigmas from "
+             "%.2f)" % (share, sigmas, 1 - p))
+    res = {"attention_block_kept_share": share,
+           "attention_block_sigmas": sigmas}
+    if device.type != "cuda":
+        return res
+    # the card draws the CPU's bits (int32 products wrap alike)
+    res["bits_equal_cpu"] = bool(torch.equal(
+        prng.uniform24(key, (1 << 20,)).cpu(),
+        prng.uniform24(key.cpu(), (1 << 20,))))
+    if not res["bits_equal_cpu"]:
+        fail("the card's dropout bits differ from the CPU's")
+    n_layer = config["n_layer"]
+    res.update({
+        "ffn_shape": list(x.shape), "attention_block_shape": list(att),
+        "ffn_mask_ms": time_ms(lambda: prng.keep_mask(key, x.shape, p)),
+        "ffn_dropout_ms": time_ms(lambda: torch.where(
+            prng.keep_mask(key, x.shape, p), x, zero)),
+        "attention_block_mask_ms": time_ms(
+            lambda: prng.keep_mask(key, att, p)),
+        "philox_ffn_mask_ms": time_ms(
+            lambda: torch.rand(x.shape, device=device) >= p),
+        "draws_per_step": {"ffn": 2 * n_layer, "attention": 3 * n_layer}})
+    res["step_draw_ms"] = (2 * n_layer * res["ffn_dropout_ms"]
+                           + 3 * n_layer * res["attention_block_mask_ms"])
+    return res
+
+
+def check_nmt_attention(torch, dev, seed):
+    """K1, K2 and K4 and their bf16 twins at the nmt phase's attention
+    shapes, BTHD (NMT_BATCH x NMT_SEQ queries and keys, NMT_CONFIG's
+    heads) with nmt_feed's lengths: non-causal over the source lengths
+    (the encoder's self-attention and the cross-attention) and causal
+    over the target lengths (the decoder's self-attention); fp32 at
+    KERNEL_TOL, bf16 by bf16_gate. Returns the worst error of each."""
+    cfg = NMT_CONFIG
+    h = cfg["n_head"]
+    d = cfg["d_model"] // h
+    feed = nmt_feed(cfg, NMT_BATCH, NMT_SEQ, NMT_MIN_LEN, seed, "cpu")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 5)
+    shape = (torch, gen, dev, NMT_BATCH, NMT_SEQ, h, d)
+    worst = dict.fromkeys(("K1", "K2", "K4", "K1-bf16", "K2-bf16",
+                           "K4-bf16"), 0.0)
+    for causal, side in ((False, "src_len"), (True, "tgt_len")):
+        lengths = feed[side].tolist()
+        fwd = check_flash(*shape, causal, "bthd", lengths=lengths)
+        bwd = check_flash_bwd(*shape, causal, "bthd", lengths=lengths)
+        fwd16 = check_flash_bf16(*shape, causal, "bthd", lengths=lengths)
+        bwd16 = check_flash_bwd_bf16(*shape, causal, "bthd",
+                                     lengths=lengths)
+        for key, err in (("K1", fwd["max_abs_err"]),
+                         ("K2", bwd["K2_max_abs_err"]),
+                         ("K4", bwd["K4_max_abs_err"]),
+                         ("K1-bf16", fwd16["max_abs_err"]),
+                         ("K2-bf16", bwd16["K2_max_abs_err"]),
+                         ("K4-bf16", bwd16["K4_max_abs_err"])):
+            worst[key] = max(worst[key], err)
+    emit({"case": "nmt attention shapes", "shape": [NMT_BATCH, NMT_SEQ, h,
+                                                    d],
+          "layout": "bthd", "tol": KERNEL_TOL, "max_abs_err": worst})
+    return worst
+
+
+@contextlib.contextmanager
+def relu_pinned(signs, flips=None):
+    """Every relu op records in signs[name] (name: its input's) where its
+    input z is positive; or, with ``flips``, passes z where signs[name]
+    (another step's) says, not where its own z is positive, and records
+    in flips[name] its units and those whose own sign differs."""
+    from paddle_tpu_torch.ops import registry
+
+    inner = registry.KERNELS["relu"]
+
+    def relu(ctx):
+        name, z = ctx.op.input("X")[0], ctx.input("X")
+        if flips is None:
+            signs[name] = z.detach() > 0
+            return inner(ctx)
+        keep = signs[name]
+        flips[name] = (z.numel(), int(((z.detach() > 0) != keep).sum()))
+        return {"Out": z * keep.to(z.dtype)}
+
+    registry.KERNELS["relu"] = relu
+    try:
+        yield
+    finally:
+        registry.KERNELS["relu"] = inner
+
+
+def run_nmt(config, batch, seq, min_len, lr, warm, steps, dropout, seed,
+            place, workdir, amp_level=None):
+    """Train get_model's encoder-decoder Transformer at ``config`` as a
+    user would: build, startup, Executor.run steps on one seeded batch
+    (nmt_feed), each one replay of the step's CUDA graph, timed in turns
+    against the same step op by op, a profiled step of each (the main
+    path's run: the graph step, device counters zeroed before it). Then,
+    from one saved state and the same step of the random stream: the
+    step through its graph and op by op (graph_vs_eager; under AMP
+    relative to the fp32 program's step); at dropout 0 the steps with the
+    plain attention, op by op (kernels_vs_plain: bf16 compare_amp; fp32
+    compare_steps with the ReLUs pinned to the kernel step's signs
+    (relu_pinned), and bwd_kernels_vs_plain_bwd on K1's forward), and
+    the step with
+    PADDLE_TPU_FLASH_FUSED_BWD=1 (its device launches and its state
+    against the split backward's); with dropout, every dropout op's mask
+    in two successive steps (they differ; each keeps 1 - p of its
+    elements within KEEP_SIGMAS) and the draws' device ms
+    (dropout_draws). Runs on any place (the CPU tests rehearse it at a
+    tiny size); the gates on launch counts hold on the card."""
+    from paddle_tpu_torch import Executor, Scope
+
+    keys = FP32_KERNELS + BF16_KERNELS
+    t0 = time.perf_counter()
+    main, startup, loss = build_nmt(config, batch, seq, lr, seed, dropout,
+                                    amp_level)
+    exe, scope = Executor(place), Scope()
+    exe.run(startup, scope=scope)
+    feed = nmt_feed(config, batch, seq, min_len, seed, exe.device)
+    tokens = int(feed["tgt_len"].sum())
+    t = _Trainer(exe, scope, main, loss, None, batch, seq, seed, keys,
+                 workdir, feed=feed, tokens=tokens)
+    tag = "nmt_%s%s" % (amp_level or "fp32", "_dropout" if dropout else "")
+    res = {"phase": "nmt", "amp_level": amp_level, "dropout": dropout,
+           "config": config, "batch": batch, "seq": seq, "lr": lr,
+           "params": t.n_params, "target_tokens": tokens,
+           "source_tokens": int(feed["src_len"].sum())}
+    res.update(t.timed_turns(warm, steps, tag + "_step", t0))
+    # the main path's step: its graph's pool (autograd's saved tensors,
+    # dropout masks among them, live at once) and its buffers
+    (main_step,) = exe.step_cache.steps()
+    res["graph_pool_gb"] = main_step.pool_bytes / 1e9
+    res["step_gb"] = main_step.nbytes / 1e9
+    res["graph_launches_per_step"] = (
+        res["profile"]["host_launch_calls"]["graph_launches"] if t.cuda
+        else None)
+    saved, s0 = t.saved, exe.program_steps(main)
+    nothing = contextlib.nullcontext
+    graph, _ = t.one_step(main, saved, nothing(), step=s0)
+    eager, res["kernel_eager_launches"] = t.one_step(
+        main, saved, nothing(), eager=True, step=s0)
+    far = None
+    if amp_level:
+        # the fp32 program draws the same masks: the same ops, the same
+        # seed, the same step
+        far, _ = t.one_step(build_nmt(config, batch, seq, lr, seed,
+                                      dropout)[0], saved, nothing(),
+                            eager=True, step=s0)
+
+    def gate(a, b):
+        return compare_amp(a, b, far, lr) if amp_level else \
+            compare_steps(a, b, lr)
+
+    res["graph_vs_eager"] = graph_vs_eager(graph, eager, gate(graph, eager))
+    del eager
+    checks = ["graph_vs_eager"]
+    if not dropout:
+        # the kernels (with lengths, non-causal and cross) against the
+        # plain attention, op by op: in bf16 forward and backward
+        # (compare_amp); in fp32 the whole step (compare_steps, GRAD_RTOL)
+        # with every ReLU passing where the kernel step's did
+        # (relu_pinned: the two forwards differ in their last bits, and an
+        # FFN unit whose input lies that close to 0 passes the gradient in
+        # one step and not in the other, a whole token's term of its
+        # weight's gradient; those units are counted, and the unpinned
+        # step's comparison at PATH_GRAD_RTOL printed), and the backward
+        # kernels against the plain backward on K1's own forward
+        plain, res["plain_launches"] = t.one_step(
+            main, saved, plain_attention(), eager=True, step=s0)
+        if amp_level:
+            res["kernels_vs_plain"] = compare_amp(graph, plain, far, lr)
+        else:
+            res["kernels_vs_plain_unpinned"] = compare_steps(
+                graph, plain, lr, PATH_GRAD_RTOL)
+            del plain
+            signs, flips = {}, {}
+            with relu_pinned(signs):
+                t.one_step(main, saved, nothing(), eager=True, step=s0)
+            with relu_pinned(signs, flips):
+                plain, _ = t.one_step(main, saved, plain_attention(),
+                                      eager=True, step=s0)
+            del signs
+            res["kernels_vs_plain"] = compare_steps(graph, plain, lr)
+            res["relu_flips"] = {
+                "relus": len(flips), "units": sum(u for u, _ in
+                                                  flips.values()),
+                "flips": sum(f for _, f in flips.values()),
+                "flip_share_max": max(f / u for u, f in flips.values()),
+                "flips_by_relu": [f for _, f in flips.values()]}
+            plain_bwd, res["plain_bwd_launches"] = t.one_step(
+                main, saved, plain_attention(forward_kernel=True),
+                eager=True, step=s0)
+            res["bwd_kernels_vs_plain_bwd"] = compare_steps(graph,
+                                                            plain_bwd, lr)
+            checks.append("bwd_kernels_vs_plain_bwd")
+            del plain_bwd
+        checks.append("kernels_vs_plain")
+        del plain
+        fused_env = functools.partial(env_set, "PADDLE_TPU_FLASH_FUSED_BWD",
+                                      "1")
+        fused, _ = t.one_step(main, saved, fused_env(), step=s0)
+        res["fused_bwd_vs_split"] = gate(fused, graph)
+        res["fused_bwd_launches"] = t.replay_launches(main, fused_env())
+        checks.append("fused_bwd_vs_split")
+        del fused
+    else:
+        names = [op.output("Mask")[0] for op in main.global_block().ops
+                 if op.type == "dropout"]
+        t.restore(saved)
+        exe.set_program_steps(main, s0)
+        first = exe.run(main, feed, names, scope=scope, return_numpy=False)
+        second = exe.run(main, feed, names, scope=scope, return_numpy=False)
+        shares = [keep_share(m, dropout) for m in first]
+        res["masks"] = {
+            "ops": len(names), "dtype": str(first[0].dtype),
+            "kept_share_min": min(s for s, _ in shares),
+            "kept_share_max": max(s for s, _ in shares),
+            "sigmas_max": max(abs(z) for _, z in shares),
+            "sigmas_tol": KEEP_SIGMAS,
+            "steps_differ": all(not bool((a == b).all())
+                                for a, b in zip(first, second))}
+        del first, second
+        res["draws"] = dropout_draws(config, batch, seq, dropout, amp_level,
+                                     seed, exe.device)
+        if not res["masks"]["steps_differ"] or \
+                res["masks"]["sigmas_max"] > KEEP_SIGMAS:
+            fail("nmt dropout masks: %s" % json.dumps(res["masks"]))
+    del graph, far
+    res["step_cache"] = t.cache_line()
+    for key in checks:
+        if not res[key]["ok"]:
+            fail("nmt step %s (%s, dropout %s) failed: %s"
+                 % (key, amp_level or "fp32", dropout, json.dumps(res[key])))
+    if t.cuda:
+        none = dict.fromkeys(keys, 0)
+        want = dict(none)
+        n_att = 3 * config["n_layer"]
+        names = BF16_KERNELS if amp_level else FP32_KERNELS
+        if not dropout:
+            want.update(dict.fromkeys(names[:3], n_att))
+        expect = {"launches_per_step": want,
+                  "main_path_host_launches": none,
+                  "host_launches_per_graph_step": none,
+                  "eager_launches_per_step": want,
+                  "kernel_eager_launches": want}
+        if not dropout:
+            expect["fused_bwd_launches"] = {
+                **none, names[0]: n_att, names[3]: n_att}
+            expect["plain_launches"] = none
+            if not amp_level:
+                expect["plain_bwd_launches"] = {**none, names[0]: n_att}
+        for key, counts in expect.items():
+            if res[key] != counts:
+                fail("nmt (%s, dropout %s): %s %s, expected %s"
+                     % (amp_level or "fp32", dropout, key, res[key], counts))
+        if res["graph_launches_per_step"] != 1:
+            fail("nmt (%s, dropout %s): %s graph launches in the main "
+                 "path's step, expected 1" % (amp_level or "fp32", dropout,
+                                              res["graph_launches_per_step"]))
+    exe.close()
+    return res
+
+
+def _qkv_split(tensors, n_head):
+    """{name: tensor} with every fused ``.qkv.w``/``.qkv.b`` (and its
+    @GRAD) split into the separate projections' ``.q``, ``.k``, ``.v``
+    (columns grouped per head: [h0: q,k,v | h1: q,k,v | ...])."""
+    out = {}
+    for name, x in tensors.items():
+        if ".qkv." not in name:
+            out[name] = x
+            continue
+        lead, d3 = tuple(x.shape[:-1]), x.shape[-1]
+        parts = x.reshape(lead + (n_head, 3, d3 // 3 // n_head))
+        for i, which in enumerate("qkv"):
+            out[name.replace(".qkv.", ".%s." % which)] = \
+                parts[..., i, :].reshape(lead + (d3 // 3,))
+    return out
+
+
+def _qkv_fuse(get, name, n_head):
+    """The fused ``name`` (a .qkv.w or .qkv.b) from the separate
+    projections' tensors, ``get(name)`` each."""
+    import torch
+
+    parts = [get(name.replace(".qkv.", ".%s." % w)) for w in "qkv"]
+    lead, d = tuple(parts[0].shape[:-1]), parts[0].shape[-1]
+    return torch.stack([x.reshape(lead + (n_head, d // n_head))
+                        for x in parts], dim=-2).reshape(lead + (3 * d,))
+
+
+def run_lm_variants(config, batch, seq, lr, steps, seed, place, workdir,
+                    amp_gates=True):
+    """The flagship LM's other builds in bf16 O2, as bench.py builds them
+    (minimize, then O2), against the separate-projection, fused-head
+    program of the train_amp phase from one state: fused_qkv=True (the
+    fused projections made from the separate ones, per head [q|k|v]) and
+    fused_head=False (the same lm.head.w/.b through the logits and
+    softmax_with_cross_entropy). Timed graph steps of the separate and
+    the fused-q/k/v program in turns (ms each), a profiled fused-q/k/v
+    step (one graph launch); then one step of each variant from the
+    state (graph replays, their device launches), each held against the
+    separate-projection step relative to the fp32 program's distance
+    (compare_amp; the fused q/k/v's loss, gradients and parameters split
+    back into .q/.k/.v), and the fp32 steps likewise (compare_steps).
+    Runs on any place: the CPU tests rehearse it at a size where one
+    Adam step's bf16 rounding is no measure of the card's, with
+    ``amp_gates`` off (the bf16 comparisons are then returned, not
+    gated)."""
+    import torch
+    from paddle_tpu_torch import Executor, Scope
+
+    keys = FP32_KERNELS + BF16_KERNELS
+    n_head = config["n_head"]
+    exe, nothing = Executor(place), contextlib.nullcontext
+    sep, sep_start, sep_loss = build_train(config, batch, seq, lr, seed,
+                                           "O2")
+    qkv, qkv_start, qkv_loss = build_train(dict(config, fused_qkv=True),
+                                           batch, seq, lr, seed, "O2")
+    unf, _, unf_loss = build_train(dict(config, fused_head=False), batch,
+                                   seq, lr, seed, "O2")
+    s_scope, q_scope = Scope(), Scope()
+    exe.run(sep_start, scope=s_scope)
+    exe.run(qkv_start, scope=q_scope)
+    for v in qkv.list_vars():
+        if v.persistable and v.name.endswith((".qkv.w", ".qkv.b")):
+            q_scope.set_var(v.name, _qkv_fuse(s_scope.find_var, v.name,
+                                              n_head).clone())
+        elif v.persistable and s_scope.find_var(v.name) is not None:
+            q_scope.set_var(v.name, s_scope.find_var(v.name).clone())
+    ts = _Trainer(exe, s_scope, sep, sep_loss, config, batch, seq, seed,
+                  keys, workdir)
+    tq = _Trainer(exe, q_scope, qkv, qkv_loss, config, batch, seq, seed,
+                  keys, workdir)
+    tu = _Trainer(exe, s_scope, unf, unf_loss, config, batch, seq, seed,
+                  keys, workdir)
+    if set(tu.params) != set(ts.params):
+        fail("the unfused head's parameters %s are not the fused head's"
+             % sorted(set(tu.params) ^ set(ts.params)))
+    saved_s, saved_q = ts.save(), tq.save()
+    res = {"phase": "lm_variants", "amp_level": "O2", "config": config,
+           "batch": batch, "seq": seq, "lr": lr}
+    # timed graph steps in turns
+    ms = {"separate": [], "fused_qkv": []}
+    for name in ("separate", "fused_qkv", "fused_qkv", "separate"):
+        tr = ts if name == "separate" else tq
+        tr.step()
+        tr.sync()
+        for _ in range(steps):
+            t1 = time.perf_counter()
+            float(tr.step()[0])
+            ms[name].append((time.perf_counter() - t1) * 1e3)
+    res["step_ms"] = ms
+    res["step_ms_mean"] = {k: float(np.mean(v)) for k, v in ms.items()}
+    if tq.cuda:
+        _device_counts((), reset=True)
+        prof = profile_call(tq.step, os.path.join(
+            workdir, "lm_fused_qkv_step_ops.txt"))
+        res["fused_qkv_launches_per_step"] = _device_counts(keys)
+        res["fused_qkv_graph_launches_per_step"] = \
+            prof["host_launch_calls"]["graph_launches"]
+        res["fused_qkv_profile"] = {k: prof[k] for k in (
+            "device_busy_ms", "device_idle_share", "device_ms_by_kind")}
+    # one step of each from the state, bf16 through graphs, fp32 op by op
+    sep16, _ = ts.one_step(sep, saved_s, nothing())
+    qkv16, _ = tq.one_step(qkv, saved_q, nothing())
+    res["fused_qkv_replay_launches"] = tq.replay_launches(qkv, nothing())
+    unf16, _ = tu.one_step(unf, saved_s, nothing())
+    res["unfused_head_replay_launches"] = tu.replay_launches(unf, nothing())
+    fp32 = {}
+    for name, tr, saved, extra in (("sep", ts, saved_s, {}),
+                                   ("qkv", tq, saved_q, {"fused_qkv": True}),
+                                   ("unf", tu, saved_s,
+                                    {"fused_head": False})):
+        fp32[name], _ = tr.one_step(build_train(
+            dict(config, **extra), batch, seq, lr, seed)[0], saved,
+            nothing(), eager=True)
+
+    def split(step):
+        return (step[0], _qkv_split(step[1], n_head),
+                _qkv_split(step[2], n_head))
+
+    res.update({
+        "fused_qkv_vs_separate": compare_amp(split(qkv16), sep16,
+                                             fp32["sep"], lr),
+        "fused_qkv_vs_separate_fp32": compare_steps(
+            split(fp32["qkv"]), fp32["sep"], lr, PATH_GRAD_RTOL),
+        "unfused_vs_fused_head": compare_amp(unf16, sep16, fp32["sep"],
+                                             lr),
+        "unfused_vs_fused_head_fp32": compare_steps(
+            fp32["unf"], fp32["sep"], lr, PATH_GRAD_RTOL)})
+    del sep16, qkv16, unf16, fp32
+    res["step_cache"] = ts.cache_line()
+    exe.close()
+    gates = {key: res[key]["ok"] for key in (
+        "fused_qkv_vs_separate_fp32", "unfused_vs_fused_head_fp32")}
+    if amp_gates:
+        gates.update({key: res[key]["ok"] for key in (
+            "fused_qkv_vs_separate", "unfused_vs_fused_head")})
+    res["gates_held"] = gates
+    for key, ok in gates.items():
+        if not ok:
+            fail("lm_variants %s failed: %s" % (key, json.dumps(res[key])))
+    if tq.cuda:
+        none = dict.fromkeys(keys, 0)
+        want = {**none, **dict.fromkeys(BF16_KERNELS[:3],
+                                        config["n_layer"])}
+        for key in ("fused_qkv_launches_per_step",
+                    "fused_qkv_replay_launches",
+                    "unfused_head_replay_launches"):
+            if res[key] != want:
+                fail("lm_variants: %s %s, expected %s"
+                     % (key, res[key], want))
+        if res["fused_qkv_graph_launches_per_step"] != 1:
+            fail("lm_variants: %s graph launches in a fused q/k/v step, "
+                 "expected 1" % res["fused_qkv_graph_launches_per_step"])
+    return res
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -4288,6 +4830,26 @@ def main(argv=None):
     ip["gpu"] = smi
     emit(ip)
 
+    # the attention kernels at the nmt step's shapes and lengths, then the
+    # step
+    nmt_att = check_nmt_attention(torch, dev, args.seed)
+    nmt = {}
+    for amp_level in (None, "O2"):
+        for rate in (0.0, NMT_DROPOUT):
+            got = run_nmt(NMT_CONFIG, NMT_BATCH, NMT_SEQ, NMT_MIN_LEN,
+                          NMT_LR, NMT_WARM, NMT_STEPS, rate, args.seed,
+                          CUDAPlace(0), workdir, amp_level)
+            got["gpu"] = smi
+            emit(got)
+            nmt[amp_level, rate] = got
+            torch.cuda.empty_cache()
+    lv = run_lm_variants(TRAIN_CONFIG, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR,
+                         NMT_STEPS, args.seed, CUDAPlace(0), workdir)
+    lv["gpu"] = smi
+    emit(lv)
+    torch.cuda.empty_cache()
+    nmt32, nmt16 = nmt[None, 0.0], nmt["O2", 0.0]
+
     sl = run_slice(FULL_CONFIG, prompt_lens, MAX_NEW, args.seed,
                    CUDAPlace(0), workdir)
     engine, predictor = sl.pop("engine"), sl.pop("predictor")
@@ -4357,6 +4919,8 @@ def main(argv=None):
               "paddle_tpu/ops/attention.py:172",
               {"train_step": per_step["K1"],
                "train_step_bhtd": tr["bhtd_launches"]["K1"],
+               "nmt_step": nmt32["launches_per_step"]["K1"],
+               "nmt_step_fused_bwd": nmt32["fused_bwd_launches"]["K1"],
                "generate": sl["device_launches"]["K1"],
                "server_round": server_launches["K1"],
                "speculative_generate": spec_random["device_launches"]["K1"],
@@ -4371,6 +4935,7 @@ def main(argv=None):
               (k1["bound_ms"], k1["bound_by"]), k1["library_ms"],
               generate_host_launches=sl["launches"]["K1"],
               fp32_bound_ms=k1["fp32_bound_ms"], host_us=k1["host_us"],
+              nmt_max_abs_err=nmt_att["K1"],
               sass=sass_of("flash_fwd"),
               **{"serving_" + key: k1_serve[key] for key in (
                   "shape", "ms", "plain_ms", "library_ms", "bound_ms",
@@ -4378,18 +4943,22 @@ def main(argv=None):
         entry("flash_bwd_dq", csrc + "flash_bwd.cu",
               "paddle_tpu/ops/attention.py:216",
               {"train_step": per_step["K2-dq"],
-               "train_step_bhtd": tr["bhtd_launches"]["K2-dq"]},
+               "train_step_bhtd": tr["bhtd_launches"]["K2-dq"],
+               "nmt_step": nmt32["launches_per_step"]["K2-dq"]},
               bwd["K2_max_abs_err"], bwd["dq_ms"], bwd["plain_ms"],
               (bwd["dq_bound_ms"], bwd["dq_bound_by"]), None,
               fp32_bound_ms=bwd["dq_fp32_bound_ms"],
+              nmt_max_abs_err=nmt_att["K2"],
               sass=sass_of("flash_bwd_dq")),
         entry("flash_bwd_dkv", csrc + "flash_bwd.cu",
               "paddle_tpu/ops/attention.py:246",
               {"train_step": per_step["K2-dkv"],
-               "train_step_bhtd": tr["bhtd_launches"]["K2-dkv"]},
+               "train_step_bhtd": tr["bhtd_launches"]["K2-dkv"],
+               "nmt_step": nmt32["launches_per_step"]["K2-dkv"]},
               bwd["K2_max_abs_err"], bwd["dkv_ms"], bwd["plain_ms"],
               (bwd["dkv_bound_ms"], bwd["dkv_bound_by"]), None,
               fp32_bound_ms=bwd["dkv_fp32_bound_ms"],
+              nmt_max_abs_err=nmt_att["K2"],
               sass=sass_of("flash_bwd_dkv")),
         entry("decode_attn", csrc + "decode_attn.cu",
               "paddle_tpu/ops/kv_cache.py:88",
@@ -4412,10 +4981,12 @@ def main(argv=None):
               empty_ms=k3_empty["ms"]),
         entry("flash_bwd_fused", csrc + "flash_bwd_fused.cu",
               "paddle_tpu/ops/attention.py:282",
-              {"train_step_fused_bwd": fused_step["K4"]},
+              {"train_step_fused_bwd": fused_step["K4"],
+               "nmt_step_fused_bwd": nmt32["fused_bwd_launches"]["K4"]},
               bwd["K4_max_abs_err"], bwd["fused_ms"], bwd["plain_ms"],
               (bwd["pair_bound_ms"], bwd["pair_bound_by"]),
               bwd["library_ms"], fp32_bound_ms=bwd["pair_fp32_bound_ms"],
+              nmt_max_abs_err=nmt_att["K4"],
               sass=sass_of("flash_bwd_fused")),
     ]
     amp_step, amp_o1 = ta["launches_per_step"], ta["o1_launches"]
@@ -4430,7 +5001,12 @@ def main(argv=None):
               {"train_amp_step": amp_step["K1-bf16"],
                "train_amp_o1_step": amp_o1["K1-bf16"],
                "train_loop": loop["K1-bf16"],
-               "train_files": tf["launches"]["K1-bf16"]},
+               "train_files": tf["launches"]["K1-bf16"],
+               "nmt_amp_step": nmt16["launches_per_step"]["K1-bf16"],
+               "lm_fused_qkv_step": lv["fused_qkv_launches_per_step"][
+                   "K1-bf16"],
+               "lm_unfused_head_step": lv["unfused_head_replay_launches"][
+                   "K1-bf16"]},
               k1b["max_abs_err"], k1b["ms"], k1b["plain_ms"],
               (k1b["bound_ms"], k1b["bound_by"]), k1b["library_ms"],
               plain_err=k1b["plain_err"], err_ratio=k1b["err_ratio"],
@@ -4438,6 +5014,7 @@ def main(argv=None):
               host_us_new_maps=k1b["host_us_new_maps"],
               fp32_host_us=k1b["fp32_host_us"],
               map_encode_us=k1b["map_encode_us"],
+              nmt_max_abs_err=nmt_att["K1-bf16"],
               sass=sass_of("flash_fwd_bf16"),
               **dh128(k1b_128, ("shape", "ms", "plain_ms", "library_ms",
                                 "bound_ms", "bound_by"))),
@@ -4446,10 +5023,16 @@ def main(argv=None):
               {"train_amp_step": amp_step["K2-dq-bf16"],
                "train_amp_o1_step": amp_o1["K2-dq-bf16"],
                "train_loop": loop["K2-dq-bf16"],
-               "train_files": tf["launches"]["K2-dq-bf16"]},
+               "train_files": tf["launches"]["K2-dq-bf16"],
+               "nmt_amp_step": nmt16["launches_per_step"]["K2-dq-bf16"],
+               "lm_fused_qkv_step": lv["fused_qkv_launches_per_step"][
+                   "K2-dq-bf16"],
+               "lm_unfused_head_step": lv["unfused_head_replay_launches"][
+                   "K2-dq-bf16"]},
               bwdb["K2_dq_err"], bwdb["dq_ms"], bwdb["plain_ms"],
               (bwdb["dq_bound_ms"], bwdb["dq_bound_by"]), None,
               err_ratio=bwdb["K2_dq_err_ratio"],
+              nmt_max_abs_err=nmt_att["K2-bf16"],
               sass=sass_of("flash_bwd_dq_bf16"),
               **dh128(bwdb_128, ("dq_ms", "dq_bound_ms"))),
         entry("flash_bwd_dkv_bf16", csrc + "flash_bwd_bf16.cu",
@@ -4457,22 +5040,31 @@ def main(argv=None):
               {"train_amp_step": amp_step["K2-dkv-bf16"],
                "train_amp_o1_step": amp_o1["K2-dkv-bf16"],
                "train_loop": loop["K2-dkv-bf16"],
-               "train_files": tf["launches"]["K2-dkv-bf16"]},
+               "train_files": tf["launches"]["K2-dkv-bf16"],
+               "nmt_amp_step": nmt16["launches_per_step"]["K2-dkv-bf16"],
+               "lm_fused_qkv_step": lv["fused_qkv_launches_per_step"][
+                   "K2-dkv-bf16"],
+               "lm_unfused_head_step": lv["unfused_head_replay_launches"][
+                   "K2-dkv-bf16"]},
               max(bwdb["K2_dk_err"], bwdb["K2_dv_err"]), bwdb["dkv_ms"],
               bwdb["plain_ms"], (bwdb["dkv_bound_ms"], bwdb["dkv_bound_by"]),
               None, err_ratio=max(bwdb["K2_dk_err_ratio"],
                                   bwdb["K2_dv_err_ratio"]),
+              nmt_max_abs_err=nmt_att["K2-bf16"],
               sass=sass_of("flash_bwd_dkv_bf16"),
               **dh128(bwdb_128, ("dkv_ms", "dkv_bound_ms"))),
         entry("flash_bwd_fused_bf16", csrc + "flash_bwd_fused_bf16.cu",
               "paddle_tpu/ops/attention.py:282",
               {"train_amp_step_fused_bwd": ta["fused_bwd_launches"][
-                  "K4-bf16"]},
+                  "K4-bf16"],
+               "nmt_amp_step_fused_bwd": nmt16["fused_bwd_launches"][
+                   "K4-bf16"]},
               bwdb["K4_max_abs_err"], bwdb["fused_ms"], bwdb["plain_ms"],
               (bwdb["pair_bound_ms"], bwdb["pair_bound_by"]),
               bwdb["library_ms"],
               err_ratio=max(bwdb["K4_%s_err_ratio" % n]
                             for n in ("dq", "dk", "dv")),
+              nmt_max_abs_err=nmt_att["K4-bf16"],
               sass=sass_of("flash_bwd_fused_bf16"),
               zero_cast_ms=bwdb["fused_zero_cast_ms"],
               dq_reduce_mb=bwdb["fused_dq_reduce_mb"],

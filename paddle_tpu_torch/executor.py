@@ -36,14 +36,21 @@ the scope since the last step (``set_var``, a load) is copied into the
 buffer by the next call. Fetches are copies and survive later steps.
 
 The random-op rule. A program holding an op that draws random numbers
-(``ops.registry.RANDOM_OPS``: ``gaussian_random``, the initializers of
-startup programs) runs op by op on every call, on the card too, with the
-same in-place state. Its generators are seeded on the host from (seed,
-step, block, op, draw), and a replayed graph would repeat the seeds of
-its capture step. Startup programs run once, so the main path never pays
-for this. Each program has its own step counter (``program_steps``),
-folded into its random stream, so running the startup program does not
-move the main program's stream.
+from a host-seeded generator (``ops.registry.RANDOM_OPS``:
+``gaussian_random``, the initializers of startup programs) runs op by
+op on every call, on the card too, with the same in-place state. Its
+generators are seeded on the host from (seed, step, block, op, draw),
+and a replayed graph would repeat the seeds of its capture step.
+Startup programs run once, so the main path never pays for this. Ops
+that may draw from a device key (``ops.registry.KEYED_OPS``: dropout and
+fused_attention, ops/rng.py) keep the graph: such a step takes one
+more feed, ``RNG_FEED``, the ``[seed, step]`` counter its graph reads,
+written before each replay (``run_loop`` uploads one row per step and
+copies it on the device), so each replay draws its own step's bits and
+equals that step run op by op. Each program has its own step counter
+(``program_steps``), folded into its random stream, so running the
+startup program does not move the main program's stream; the seed is
+``program.random_seed`` (0 when unset).
 
 ``run_loop(program, feed, fetch_list, steps)`` runs ``steps`` steps and
 returns the last one's fetches, as ``steps`` calls of ``run`` would: the
@@ -88,9 +95,15 @@ from .framework.dtypes import as_torch_dtype
 from .framework.interpreter import RngStream, run_block
 from .framework.scope import (CUDAPlace, Place, Scope, fp32_sums,
                               global_scope)
-from .ops.registry import RANDOM_OPS
+from .ops.registry import KEYED_OPS, RANDOM_OPS
 
-__all__ = ["Executor", "analyze_state", "next_pow2"]
+__all__ = ["Executor", "analyze_state", "next_pow2", "RNG_FEED"]
+
+# the step's random counter, [seed, step] int64: a feed of every step whose
+# program holds an op that may draw from a device key (ops.registry.KEYED_OPS:
+# dropout, fused_attention), which a captured graph reads, so that each
+# replay draws that step's bits
+RNG_FEED = "@RNG_COUNTER@"
 
 
 def analyze_state(program: Program, feed_names):
@@ -263,6 +276,9 @@ class Executor:
 
         def fn(static, write=True, rng=None):
             env = dict(static)
+            counter = env.pop(RNG_FEED, None)
+            if rng is None and counter is not None:
+                rng = RngStream(counter=counter)
             run_block(block, env, device, rng, keep=keep)
             for name in fetch_names:
                 if name not in env:
@@ -296,16 +312,17 @@ class Executor:
         return memo
 
     def _plan(self, program, feed_names):
-        """(state inputs, state outputs, holds a random op) of ``program``
-        fed ``feed_names``."""
+        """(state inputs, state outputs, holds a random op, holds an op
+        that draws from a device key) of ``program`` fed ``feed_names``."""
         plans = self._memo(program)[1]
         names = frozenset(feed_names)
         got = plans.get(names)
         if got is None:
             state_in, state_out = analyze_state(program, names)
-            random = any(op.type in RANDOM_OPS for b in program.blocks
-                         for op in b.ops)
-            got = plans[names] = (state_in, state_out, random)
+            ops = [op for b in program.blocks for op in b.ops]
+            random = any(op.type in RANDOM_OPS for op in ops)
+            keyed = any(op.type in KEYED_OPS for op in ops)
+            got = plans[names] = (state_in, state_out, random, keyed)
         return got
 
     def _step_for(self, program, feeds, state_vals, fetch_names, state_out,
@@ -357,10 +374,21 @@ class Executor:
         with the scope holding the new state."""
         first = {n: v[0] for n, v in per_step.items()}
         first.update(feeds)
-        state_in, state_out, random = self._plan(program, first)
+        state_in, state_out, random, keyed = self._plan(program, first)
         vals = self._state_values(scope, state_in)
         step0 = self._next_steps(program, k)
         n_fetch = len(fetch_names)
+        seed = program.random_seed if program.random_seed else self._seed
+        if keyed and not random:
+            # the graph's random counter: one [seed, step] row per step
+            counters = torch.tensor([[seed, step0 + i] for i in range(k)],
+                                    dtype=torch.int64)
+            if k == 1:
+                first[RNG_FEED] = counters[0]
+            else:
+                per_step = dict(per_step)
+                per_step[RNG_FEED] = counters.to(self.device)
+                first[RNG_FEED] = per_step[RNG_FEED][0]
 
         def read(outs):
             return [_clone(v) for v in outs]
@@ -373,8 +401,6 @@ class Executor:
                           else v.to(self.device))
                       for n, v in first.items()}
             static.update(self._state_buffers(vals))
-            seed = program.random_seed if program.random_seed \
-                else self._seed
             for i in range(k):
                 for n, v in per_step.items():
                     static[n] = v[i].to(self.device)

@@ -27,11 +27,12 @@ fp32.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
 from .. import ops as _ops  # noqa: F401  (registers every kernel)
+from ..ops import rng as _rng
 from ..ops.registry import OpContext, get_kernel
 from .core import Block, Operator, grad_var_name
 
@@ -44,45 +45,69 @@ _SKIP_OPS = {"feed", "fetch", "read"}
 # keys its random stream when present (as in the JAX package's trace.py)
 _RNG_IDX_ATTR = "__rng_idx__"
 
-_MASK64 = (1 << 64) - 1
-
-
-def _mix(*vals: int) -> int:
-    """A 63-bit seed from a tuple of integers (splitmix64 steps), so that
-    neighbouring ops, draws and steps get unrelated generators."""
-    h = 0x9E3779B97F4A7C15
-    for v in vals:
-        h = (h ^ (int(v) & _MASK64)) & _MASK64
-        h = (h + 0x9E3779B97F4A7C15) & _MASK64
-        h = ((h ^ (h >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-        h = ((h ^ (h >> 27)) * 0x94D049BB133111EB) & _MASK64
-        h ^= h >> 31
-    return h & ((1 << 63) - 1)
-
-
 class RngStream:
     """Deterministic random stream keyed on (seed, step, block, op
     position, draw number), the counterpart of the JAX package's
     ``RngStream``: the same program, seed and step give the same bits, and
     adding ops elsewhere does not move another op's stream. The bits are
-    torch's, not JAX's."""
+    torch's, not JAX's.
 
-    def __init__(self, seed: int = 0, step: int = 0):
+    An op draws in one of two ways. ``rng()`` hands out a
+    ``torch.Generator`` seeded on the host (the random ops of
+    ``ops.registry.RANDOM_OPS``, which run op by op). ``key()`` hands out
+    a key that the device computes from the step's ``counter``, a
+    ``[seed, step]`` int64 tensor (ops/rng.py; the ops of ``KEYED_OPS``):
+    given ``counter``, the tensor a captured graph reads and the executor
+    rewrites before each replay, a replay draws what the same step op by
+    op draws. Without it, the counter is made on the device from ``seed``
+    and ``step``."""
+
+    def __init__(self, seed: int = 0, step: int = 0,
+                 counter: Optional[torch.Tensor] = None):
         self.seed = int(seed)
         self.step = int(step)
+        self.counter = counter
+        self._base = {}
+
+    def base_key(self, device: torch.device) -> torch.Tensor:
+        """The step's base key on ``device``, computed once per stream."""
+        device = torch.device(device)
+        got = self._base.get(device)
+        if got is None:
+            counter = self.counter if self.counter is not None else \
+                _rng.make_counter(self.seed, self.step, device)
+            got = self._base[device] = _rng.counter_key(counter.to(device))
+        return got
 
     def for_op(self, block_idx: int, op_idx: int,
-               device: torch.device) -> Callable[[], torch.Generator]:
-        draws = [0]
+               device: torch.device) -> "_OpRng":
+        return _OpRng(self, block_idx, op_idx, device)
 
-        def next_generator():
-            gen = torch.Generator(device=device)
-            gen.manual_seed(_mix(self.seed, self.step, block_idx, op_idx,
-                                 draws[0]))
-            draws[0] += 1
-            return gen
 
-        return next_generator
+class _OpRng:
+    """One op's draws: ``()`` a fresh generator, ``key()`` a fresh key
+    (each call is the next draw)."""
+
+    def __init__(self, stream: RngStream, block_idx: int, op_idx: int,
+                 device: torch.device):
+        self._stream, self._device = stream, device
+        self._block, self._op = block_idx, op_idx
+        self._draws = 0
+
+    def _next(self) -> int:
+        self._draws += 1
+        return self._draws - 1
+
+    def __call__(self) -> torch.Generator:
+        s = self._stream
+        gen = torch.Generator(device=self._device)
+        gen.manual_seed(_rng.mix(s.seed, s.step, self._block, self._op,
+                                 self._next()))
+        return gen
+
+    def key(self) -> torch.Tensor:
+        return _rng.op_key(self._stream.base_key(self._device),
+                           _rng.mix(self._block, self._op, self._next()))
 
 
 class TraceError(RuntimeError):
@@ -187,9 +212,9 @@ class _CastEnvView(_EnvView):
 
 
 def run_op(op: Operator, block: Block, env: Dict, device: torch.device,
-           rng_fn: Callable[[], torch.Generator]):
+           rng_fn: _OpRng):
     """Run one op's kernel on ``env``'s tensors; its outputs land in
-    ``env``. ``rng_fn`` makes the op's random generators. A
+    ``env``. ``rng_fn`` makes the op's random generators and keys. A
     non-persistable output whose variable has ``stop_gradient`` is
     detached (the JAX package's stop_gradient)."""
     kernel = get_kernel(op.type)

@@ -6,6 +6,7 @@ built program identically). Kernels live in paddle_tpu_torch/ops/*.
 """
 from __future__ import annotations
 
+from ..framework.dtypes import convert_dtype
 from ..layer_helper import LayerHelper
 from .ops import elementwise_add  # re-export for parity
 
@@ -34,6 +35,12 @@ __all__ = [
     "top_p_sample",
     "mean",
     "fused_lm_head_loss",
+    "dropout",
+    "softmax",
+    "softmax_with_cross_entropy",
+    "reduce_sum",
+    "unstack",
+    "sequence_mask",
 ]
 
 # the JAX package's default ``block_k`` attr: it rides the op desc (so
@@ -549,3 +556,116 @@ def fused_lm_head_loss(input, label, size, param_attr=None, bias_attr=None,
         attrs={"block_v": block_v, "transpose_w": bool(transpose_w)},
     )
     return loss
+
+
+def softmax(input, use_cudnn=True, name=None):
+    helper = LayerHelper("softmax", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype,
+                                                    shape=input.shape)
+    helper.append_op(type="softmax", inputs={"X": [input]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100):
+    """Per-row loss (..., 1) of softmax + cross entropy (kernel:
+    ops/math.py); the op's Softmax output rides beside it."""
+    helper = LayerHelper("softmax_with_cross_entropy")
+    loss_shape = tuple(logits.shape[:-1]) + (1,)
+    softmax_out = helper.create_variable_for_type_inference(
+        logits.dtype, shape=logits.shape)
+    loss = helper.create_variable_for_type_inference(logits.dtype,
+                                                     shape=loss_shape)
+    helper.append_op(
+        type="softmax_with_cross_entropy",
+        inputs={"Logits": [logits], "Label": [label]},
+        outputs={"Softmax": [softmax_out], "Loss": [loss]},
+        attrs={"soft_label": soft_label, "ignore_index": ignore_index},
+    )
+    return loss
+
+
+def _reduce_layer(op_type, input, dim, keep_dim, name):
+    helper = LayerHelper(op_type, name=name)
+    if dim is None:
+        out_shape = ()
+        attrs = {"reduce_all": True, "keep_dim": keep_dim}
+    else:
+        dims = dim if isinstance(dim, (list, tuple)) else [dim]
+        nd = len(input.shape)
+        axes = sorted(d % nd for d in dims)
+        shape = list(input.shape)
+        if keep_dim:
+            for a in axes:
+                shape[a] = 1
+        else:
+            for a in reversed(axes):
+                del shape[a]
+        out_shape = tuple(shape)
+        attrs = {"dim": list(dims), "keep_dim": keep_dim,
+                 "reduce_all": False}
+    out = helper.create_variable_for_type_inference(input.dtype,
+                                                    shape=out_shape)
+    helper.append_op(type=op_type, inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs=attrs)
+    return out
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer("reduce_sum", input, dim, keep_dim, name)
+
+
+def unstack(x, axis=0, num=None):
+    helper = LayerHelper("unstack")
+    nd = len(x.shape)
+    ax = axis % nd
+    if num is None:
+        num = x.shape[ax]
+    shape = [s for i, s in enumerate(x.shape) if i != ax]
+    outs = [helper.create_variable_for_type_inference(x.dtype,
+                                                      shape=tuple(shape))
+            for _ in range(num)]
+    helper.append_op(type="unstack", inputs={"X": [x]}, outputs={"Y": outs},
+                     attrs={"axis": axis})
+    return outs
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
+            dropout_implementation="downgrade_in_infer"):
+    """Dropout (kernel: ops/nn.py; its mask a counter-based hash, so a
+    training step keeps its CUDA graph). A ``seed`` fixes the op's mask:
+    the same mask every step."""
+    helper = LayerHelper("dropout", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype, shape=x.shape)
+    mask = helper.create_variable_for_type_inference(
+        x.dtype, shape=x.shape, stop_gradient=True)
+    helper.append_op(
+        type="dropout",
+        inputs={"X": [x]},
+        outputs={"Out": [out], "Mask": [mask]},
+        attrs={
+            "dropout_prob": dropout_prob,
+            "is_test": is_test,
+            "seed": seed if seed is not None else 0,
+            "dropout_implementation": dropout_implementation,
+        },
+    )
+    return out
+
+
+def sequence_mask(x, maxlen=None, dtype="int64", name=None):
+    """(B,) lengths -> (B, maxlen) mask (kernel: ops/sequence.py); maxlen
+    must be given."""
+    helper = LayerHelper("sequence_mask", name=name)
+    if maxlen is None:
+        raise ValueError("sequence_mask requires a static maxlen")
+    out = helper.create_variable_for_type_inference(
+        convert_dtype(dtype), shape=(x.shape[0] if x.shape else -1, maxlen))
+    helper.append_op(
+        type="sequence_mask",
+        inputs={"X": [x]},
+        outputs={"Y": [out]},
+        attrs={"maxlen": maxlen, "out_dtype": convert_dtype(dtype)},
+    )
+    return out

@@ -1,27 +1,31 @@
-"""The flagship decoder LM's graphs (counterpart of
-paddle_tpu/models/transformer.py): the training graph ``transformer_lm``
-with its ``multi_head_attention`` and ``decoder_layer``, and the serving
-graphs ``transformer_lm_prefill``, ``transformer_lm_decode`` (fp32 or
-int8 slabs, at any depth up to the model's: the speculative draft is the
-same builder at ``draft_n_layer`` layers) and ``transformer_lm_verify``
-(the speculative verify window, also the prefix store's suffix
-extension).
+"""The Transformer's graphs (counterpart of
+paddle_tpu/models/transformer.py): the encoder-decoder training graph
+``transformer_nmt`` (``get_model``, the reference's machine-translation
+benchmark model) with its ``transformer_encoder``, ``encoder_layer``,
+``decoder_layer`` (self-attention, cross-attention over the encoder's
+output, a dense FFN) and ``multi_head_attention``; the decoder LM's
+training graph ``transformer_lm``; and its serving graphs
+``transformer_lm_prefill``, ``transformer_lm_decode`` (fp32 or int8
+slabs, at any depth up to the model's: the speculative draft is the same
+builder at ``draft_n_layer`` layers) and ``transformer_lm_verify`` (the
+speculative verify window, also the prefix store's suffix extension).
 
-``transformer_lm`` builds the JAX package's program op for op (fused
-attention in the BTHD layout, or BHTD under ``PADDLE_TPU_ATTN_BTHD=0``;
-the fused LM head, tied or not), so both packages serialize the same
-program and name the same parameters (a test pins it). The serving
-builders re-create ``transformer_lm``'s parameter set NAME-FOR-NAME
-(explicitly named projections AND the auto-named layer_norm_N scale/bias
-pairs), so a scope trained through either package's ``transformer_lm``
-loads into them directly. That only holds when the layer-creation ORDER
-matches exactly: build under ``unique_name.guard()`` and keep the
-layer_norm call sequence identical (2 per layer + 1 final).
+Every builder emits the JAX package's program op for op and names the
+same parameters (tests pin the JSON equality): fused attention in the
+BTHD layout, or BHTD under ``PADDLE_TPU_ATTN_BTHD=0``; fused q/k/v
+projections; the unfused attention (scale, matmul, additive mask,
+softmax, dropout, matmul); the fused LM head or the unfused one through
+``softmax_with_cross_entropy``, tied or not; dropout in the FFN and in
+attention. The serving builders re-create ``transformer_lm``'s parameter
+set NAME-FOR-NAME (explicitly named projections AND the auto-named
+layer_norm_N scale/bias pairs), so a scope trained through either
+package's ``transformer_lm`` loads into them directly. That only holds
+when the layer-creation ORDER matches exactly: build under
+``unique_name.guard()`` and keep the layer_norm call sequence identical
+(2 per layer + 1 final).
 
-Not ported yet: ring attention (queue 1 item 7, multi-device), fused
-q/k/v projections, the unfused
-attention and LM-head paths, cross-attention (the encoder-decoder model),
-mixture-of-experts FFNs and dropout; each raises NotImplementedError.
+Not ported yet, each raising NotImplementedError: ring attention (queue
+1 item 7, multi-device) and mixture-of-experts FFNs (queue 1 item 6.1).
 """
 from __future__ import annotations
 
@@ -47,10 +51,22 @@ def _linear(x, size, name=None, num_flatten_dims=2, act=None):
     )
 
 
+def _ring_unported():
+    raise NotImplementedError(
+        "ring attention is a later slice of the port (queue 1 item 7, "
+        "multi-device)")
+
+
+def _moe_unported():
+    raise NotImplementedError(
+        "mixture-of-experts FFNs are a later slice of the port (queue 1 "
+        "item 6.1)")
+
+
 def positionwise_ffn(x, d_inner, d_model, dropout_rate=0.0, name=None):
-    if dropout_rate:
-        raise NotImplementedError("dropout is a later slice of the port")
     h = _linear(x, d_inner, name and name + ".fc1", act="relu")
+    if dropout_rate:
+        h = layers.dropout(h, dropout_prob=dropout_rate)
     return _linear(h, d_model, name and name + ".fc2")
 
 
@@ -72,6 +88,236 @@ def _embed(ids, vocab_size, d_model, max_len, name):
                              initializer=NormalInitializer(0.0, 0.02)),
     )
     return layers.elementwise_add(tok, pos)
+
+
+def multi_head_attention(
+    q_in, kv_in, n_head, d_model, dropout_rate=0.0, causal=False,
+    kv_lengths=None, name=None, use_fused=True, use_ring=False,
+    sp_axis="sp", fused_qkv=False,
+):
+    """(B, Tq, D) x (B, Tk, D) -> (B, Tq, D).
+
+    use_fused=True goes through the fused_attention op: K1 forward, K2 or
+    K4 backward on the card (KV lengths mask keys there), or, with
+    dropout, the reference's XLA flash attention in plain PyTorch. The
+    heads go to the op in the BTHD layout, the projection's own shape, or
+    transposed to BHTD under PADDLE_TPU_ATTN_BTHD=0. use_fused=False
+    builds the unfused path: q scaled, q k^T, the additive mask of
+    ``_attn_mask``, softmax, dropout, weights v, in BHTD.
+
+    fused_qkv=True (self-attention only) computes q/k/v in ONE (D, 3D)
+    projection ``.qkv`` whose columns are grouped per head [h0: q,k,v |
+    h1: q,k,v | ...], reshaped to (B, T, H, 3, Dh), transposed to put
+    q/k/v first and unstacked."""
+    if use_ring:
+        _ring_unported()
+    B, Tq, _ = q_in.shape
+    Tk = kv_in.shape[1]
+    d_head = d_model // n_head
+    bthd = use_fused and os.environ.get("PADDLE_TPU_ATTN_BTHD", "1") == "1"
+
+    def split_heads(x, T):
+        x = layers.reshape(x, shape=[B, T, n_head, d_head])
+        if bthd:
+            return x  # (B, T, H, Dh), consumed as it is
+        return layers.transpose(x, perm=[0, 2, 1, 3])  # (B, H, T, Dh)
+
+    if fused_qkv and q_in is not kv_in:
+        raise ValueError(
+            "fused_qkv packs q/k/v of SELF-attention into one matmul; "
+            "pass the same Variable as q_in and kv_in (cross-attention "
+            "must use separate projections)")
+    if fused_qkv:
+        qkv = _linear(q_in, 3 * d_model, name and name + ".qkv")
+        # (B, T, H, 3, Dh): dim 3 separates q/k/v within each head group
+        qkv = layers.reshape(qkv, shape=[B, Tq, n_head, 3, d_head])
+        if bthd:
+            qkv = layers.transpose(qkv, perm=[3, 0, 1, 2, 4])  # (3,B,T,H,Dh)
+        else:
+            qkv = layers.transpose(qkv, perm=[3, 0, 2, 1, 4])  # (3,B,H,T,Dh)
+        q, k, v = layers.unstack(qkv, axis=0)
+    else:
+        q = _linear(q_in, d_model, name and name + ".q")
+        k = _linear(kv_in, d_model, name and name + ".k")
+        v = _linear(kv_in, d_model, name and name + ".v")
+        q = split_heads(q, Tq)
+        k = split_heads(k, Tk)
+        v = split_heads(v, Tk)
+
+    if use_fused:
+        ctx = layers.fused_attention(
+            q, k, v, causal=causal, sequence_length=kv_lengths,
+            dropout_rate=dropout_rate, layout="bthd" if bthd else "bhtd")
+        if bthd:
+            # already (B, Tq, H, Dh): fold heads without a transpose
+            return _linear(layers.reshape(ctx, shape=[B, Tq, d_model]),
+                           d_model, name and name + ".out")
+    else:
+        q = layers.scale(q, scale=float(d_head) ** -0.5)
+        logits = layers.matmul(q, k, transpose_y=True)  # (B, H, Tq, Tk)
+        mask = _attn_mask(B, Tq, Tk, causal=causal, kv_lengths=kv_lengths)
+        if mask is not None:
+            logits = layers.elementwise_add(logits, mask)
+        weights = layers.softmax(logits)
+        if dropout_rate:
+            weights = layers.dropout(weights, dropout_prob=dropout_rate)
+        ctx = layers.matmul(weights, v)  # (B, H, Tq, Dh)
+    ctx = layers.transpose(ctx, perm=[0, 2, 1, 3])
+    ctx = layers.reshape(ctx, shape=[B, Tq, d_model])
+    return _linear(ctx, d_model, name and name + ".out")
+
+
+def _attn_mask(B, Tq, Tk, causal=False, kv_lengths=None):
+    """Additive mask (B or 1, 1, Tq, Tk): 0 keep, -1e9 drop."""
+    parts = []
+    if causal:
+        causal_np = np.triu(np.full((Tq, Tk), -1e9, np.float32), k=1)
+        parts.append(layers.assign(causal_np.reshape(1, 1, Tq, Tk)))
+    if kv_lengths is not None:
+        # (B, Tk) padding mask from lengths
+        mask = layers.sequence_mask(kv_lengths, maxlen=Tk, dtype="float32")
+        # 0 where valid, -1e9 where padded
+        neg = layers.scale(mask, scale=1e9, bias=-1e9)
+        parts.append(layers.reshape(neg, shape=[B, 1, 1, Tk]))
+    if not parts:
+        return None
+    out = parts[0]
+    for p in parts[1:]:
+        out = layers.elementwise_add(out, p)
+    return out
+
+
+def encoder_layer(x, n_head, d_model, d_inner, dropout_rate, lengths, name):
+    """Pre-norm encoder block: self-attention over ``lengths`` valid keys
+    (not causal) and a dense FFN, each with a residual."""
+    h = _pre_norm(x)
+    attn = multi_head_attention(
+        h, h, n_head, d_model, dropout_rate,
+        kv_lengths=lengths, name=name + ".attn",
+    )
+    x = layers.elementwise_add(x, attn)
+    ffn = positionwise_ffn(_pre_norm(x), d_inner, d_model, dropout_rate,
+                           name=name + ".ffn")
+    return layers.elementwise_add(x, ffn)
+
+
+def decoder_layer(x, enc, n_head, d_model, d_inner, dropout_rate,
+                  src_lengths, tgt_lengths, name, use_ring=False,
+                  sp_axis="sp", moe_experts=0, fused_qkv=False):
+    """Pre-norm decoder block: causal self-attention over ``tgt_lengths``,
+    cross-attention over ``enc`` (already normalized, the
+    transformer_encoder's output) and its ``src_lengths`` when given, and
+    a dense FFN, each with a residual."""
+    if moe_experts:
+        _moe_unported()
+    h = _pre_norm(x)
+    self_attn = multi_head_attention(
+        h, h, n_head, d_model, dropout_rate,
+        causal=True, kv_lengths=tgt_lengths, name=name + ".self",
+        use_ring=use_ring, sp_axis=sp_axis, fused_qkv=fused_qkv,
+    )
+    x = layers.elementwise_add(x, self_attn)
+    if enc is not None:
+        cross = multi_head_attention(
+            _pre_norm(x), enc, n_head, d_model, dropout_rate,
+            kv_lengths=src_lengths, name=name + ".cross",
+        )
+        x = layers.elementwise_add(x, cross)
+    ffn = positionwise_ffn(_pre_norm(x), d_inner, d_model, dropout_rate,
+                           name=name + ".ffn")
+    return layers.elementwise_add(x, ffn)
+
+
+def transformer_encoder(src_ids, src_lengths, vocab_size, n_layer, n_head,
+                        d_model, d_inner, dropout_rate=0.1, max_len=512):
+    x = _embed(src_ids, vocab_size, d_model, max_len, "enc")
+    for i in range(n_layer):
+        x = encoder_layer(x, n_head, d_model, d_inner, dropout_rate,
+                          src_lengths, "enc.l%d" % i)
+    return _pre_norm(x)
+
+
+def transformer_nmt(
+    src_ids, src_lengths, tgt_ids, tgt_lengths, label_ids,
+    src_vocab_size, tgt_vocab_size,
+    n_layer=2, n_head=8, d_model=512, d_inner=2048,
+    dropout_rate=0.1, max_len=512,
+):
+    """Encoder-decoder training graph (Vaswani et al. 2017, pre-norm);
+    returns (avg_cost, logits): the token loss averaged over the target
+    positions below ``tgt_lengths``."""
+    enc = transformer_encoder(src_ids, src_lengths, src_vocab_size, n_layer,
+                              n_head, d_model, d_inner, dropout_rate, max_len)
+    x = _embed(tgt_ids, tgt_vocab_size, d_model, max_len, "dec")
+    for i in range(n_layer):
+        x = decoder_layer(x, enc, n_head, d_model, d_inner, dropout_rate,
+                          src_lengths, tgt_lengths, "dec.l%d" % i)
+    x = _pre_norm(x)
+    logits = _linear(x, tgt_vocab_size, "dec.head")
+    B, T = tgt_ids.shape
+    loss = layers.softmax_with_cross_entropy(
+        layers.reshape(logits, shape=[B * T, tgt_vocab_size]),
+        layers.reshape(label_ids, shape=[B * T, 1]),
+    )
+    # mask padding positions out of the loss
+    mask = layers.sequence_mask(tgt_lengths, maxlen=T, dtype="float32")
+    mask = layers.reshape(mask, shape=[B * T, 1])
+    loss = layers.elementwise_mul(loss, mask)
+    avg_cost = layers.elementwise_div(
+        layers.reduce_sum(loss), layers.reduce_sum(mask)
+    )
+    return avg_cost, logits
+
+
+def transformer_lm(
+    ids, labels, vocab_size, n_layer=4, n_head=8, d_model=512, d_inner=2048,
+    dropout_rate=0.0, max_len=2048, fused_head=True,
+    use_ring_attention=False, sp_axis="sp", moe_experts=0,
+    fused_qkv=False, tie_embeddings=False,
+):
+    """Decoder-only causal LM (the flagship). Returns (avg_cost, logits).
+    fused_head=True computes the vocab projection and loss through
+    ``layers.fused_lm_head_loss`` (the (B*T, vocab) logits are never held)
+    and returns logits None; fused_head=False builds the logits and
+    ``softmax_with_cross_entropy``. tie_embeddings=True projects through
+    the token-embedding table itself."""
+    x = _embed(ids, vocab_size, d_model, max_len, "lm")
+    for i in range(n_layer):
+        x = decoder_layer(x, None, n_head, d_model, d_inner, dropout_rate,
+                          None, None, "lm.l%d" % i,
+                          use_ring=use_ring_attention, sp_axis=sp_axis,
+                          moe_experts=moe_experts, fused_qkv=fused_qkv)
+    x = _pre_norm(x)
+    B, T = ids.shape
+    if fused_head:
+        if tie_embeddings:
+            # the head reads the EXISTING "lm.tok_emb" (V, D) table in place
+            default_main_program().global_block().var("lm.tok_emb")
+            head_attr = ParamAttr(name="lm.tok_emb")
+        else:
+            head_attr = ParamAttr(name="lm.head.w",
+                                  initializer=NormalInitializer(0.0, 0.02))
+        loss = layers.fused_lm_head_loss(
+            x, labels, vocab_size,
+            param_attr=head_attr,
+            bias_attr=ParamAttr(name="lm.head.b"),
+            transpose_w=tie_embeddings,
+        )
+        return layers.mean(loss), None
+    if tie_embeddings:
+        emb = default_main_program().global_block().var("lm.tok_emb")
+        logits = layers.matmul(x, emb, transpose_y=True)
+        bias = layers.create_parameter(
+            shape=[vocab_size], dtype=logits.dtype, name="lm.head.b",
+            is_bias=True)
+        logits = layers.elementwise_add(logits, bias)
+    else:
+        logits = _linear(x, vocab_size, "lm.head")
+    loss = layers.softmax_with_cross_entropy(
+        layers.reshape(logits, shape=[B * T, vocab_size]),
+        layers.reshape(labels, shape=[B * T, 1]),
+    )
+    return layers.mean(loss), logits
 
 
 def _cached_self_attention(h, n_head, d_model, name, k_cache=None,
@@ -131,106 +377,6 @@ def _cached_self_attention(h, n_head, d_model, name, k_cache=None,
     out = _linear(layers.reshape(ctx, shape=[B, T, d_model]),
                   d_model, name + ".out")
     return out, new_k, new_v
-
-
-def multi_head_attention(
-    q_in, kv_in, n_head, d_model, dropout_rate=0.0, causal=False,
-    kv_lengths=None, name=None, use_fused=True, use_ring=False,
-    sp_axis="sp", fused_qkv=False,
-):
-    """(B, Tq, D) x (B, Tk, D) -> (B, Tq, D) through the fused_attention
-    op (flash attention: K1 forward, K2 or K4 backward on the card). The
-    heads go to the op in the BTHD layout, the projection's own shape, or
-    transposed to BHTD under PADDLE_TPU_ATTN_BTHD=0, as in the JAX
-    package."""
-    if use_ring or fused_qkv or not use_fused:
-        raise NotImplementedError(
-            "ring attention, fused q/k/v projections and the unfused "
-            "attention path are a later slice of the port")
-    B, Tq, _ = q_in.shape
-    Tk = kv_in.shape[1]
-    d_head = d_model // n_head
-    bthd = os.environ.get("PADDLE_TPU_ATTN_BTHD", "1") == "1"
-
-    def split_heads(x, T):
-        x = layers.reshape(x, shape=[B, T, n_head, d_head])
-        if bthd:
-            return x  # (B, T, H, Dh), consumed as it is
-        return layers.transpose(x, perm=[0, 2, 1, 3])  # (B, H, T, Dh)
-
-    q = _linear(q_in, d_model, name and name + ".q")
-    k = _linear(kv_in, d_model, name and name + ".k")
-    v = _linear(kv_in, d_model, name and name + ".v")
-    q = split_heads(q, Tq)
-    k = split_heads(k, Tk)
-    v = split_heads(v, Tk)
-    ctx = layers.fused_attention(
-        q, k, v, causal=causal, sequence_length=kv_lengths,
-        dropout_rate=dropout_rate, layout="bthd" if bthd else "bhtd")
-    if not bthd:
-        ctx = layers.transpose(ctx, perm=[0, 2, 1, 3])
-    ctx = layers.reshape(ctx, shape=[B, Tq, d_model])
-    return _linear(ctx, d_model, name and name + ".out")
-
-
-def decoder_layer(x, enc, n_head, d_model, d_inner, dropout_rate,
-                  src_lengths, tgt_lengths, name, use_ring=False,
-                  sp_axis="sp", moe_experts=0, fused_qkv=False):
-    """Pre-norm decoder block: causal self-attention and a dense FFN, each
-    with a residual. Cross-attention (``enc``) and MoE FFNs are a later
-    slice."""
-    if enc is not None or moe_experts:
-        raise NotImplementedError(
-            "cross-attention and mixture-of-experts FFNs are a later slice "
-            "of the port")
-    h = _pre_norm(x)
-    self_attn = multi_head_attention(
-        h, h, n_head, d_model, dropout_rate,
-        causal=True, kv_lengths=tgt_lengths, name=name + ".self",
-        use_ring=use_ring, sp_axis=sp_axis, fused_qkv=fused_qkv,
-    )
-    x = layers.elementwise_add(x, self_attn)
-    ffn = positionwise_ffn(_pre_norm(x), d_inner, d_model, dropout_rate,
-                           name=name + ".ffn")
-    return layers.elementwise_add(x, ffn)
-
-
-def transformer_lm(
-    ids, labels, vocab_size, n_layer=4, n_head=8, d_model=512, d_inner=2048,
-    dropout_rate=0.0, max_len=2048, fused_head=True,
-    use_ring_attention=False, sp_axis="sp", moe_experts=0,
-    fused_qkv=False, tie_embeddings=False,
-):
-    """Decoder-only causal LM (the flagship). Returns (avg_cost, None): the
-    vocab projection and loss go through ``layers.fused_lm_head_loss``, so
-    the (B*T, vocab) logits are never held. tie_embeddings=True projects
-    through the token-embedding table itself (transpose_w). The unfused
-    head (fused_head=False) is a later slice."""
-    if not fused_head:
-        raise NotImplementedError(
-            "transformer_lm(fused_head=False) needs softmax_with_cross_"
-            "entropy, a later slice of the port")
-    x = _embed(ids, vocab_size, d_model, max_len, "lm")
-    for i in range(n_layer):
-        x = decoder_layer(x, None, n_head, d_model, d_inner, dropout_rate,
-                          None, None, "lm.l%d" % i,
-                          use_ring=use_ring_attention, sp_axis=sp_axis,
-                          moe_experts=moe_experts, fused_qkv=fused_qkv)
-    x = _pre_norm(x)
-    if tie_embeddings:
-        # the head reads the EXISTING "lm.tok_emb" (V, D) table in place
-        default_main_program().global_block().var("lm.tok_emb")
-        head_attr = ParamAttr(name="lm.tok_emb")
-    else:
-        head_attr = ParamAttr(name="lm.head.w",
-                              initializer=NormalInitializer(0.0, 0.02))
-    loss = layers.fused_lm_head_loss(
-        x, labels, vocab_size,
-        param_attr=head_attr,
-        bias_attr=ParamAttr(name="lm.head.b"),
-        transpose_w=tie_embeddings,
-    )
-    return layers.mean(loss), None
 
 
 def _lm_head_logits(x, vocab_size, tie_embeddings, prefix):
@@ -423,3 +569,27 @@ def transformer_lm_verify(
     idx = layers.elementwise_add(layers.cast(last_idx, "int32"), base)
     last_logits = layers.gather(logits, idx)               # (B, V)
     return next_ids, accept, last_logits, new_caches
+
+
+def get_model(
+    batch_size=16, seq_len=64, src_vocab_size=10000, tgt_vocab_size=10000,
+    n_layer=2, n_head=8, d_model=512, d_inner=2048, dropout_rate=0.1,
+):
+    """The machine-translation benchmark model: its five feeds (src_ids,
+    src_len, tgt_ids, tgt_len, lbl_ids) and transformer_nmt over them.
+    Returns (avg_cost, None, feeds)."""
+    src = layers.data(name="src_ids", shape=[batch_size, seq_len],
+                      dtype="int64", append_batch_size=False)
+    src_len = layers.data(name="src_len", shape=[batch_size], dtype="int32",
+                          append_batch_size=False)
+    tgt = layers.data(name="tgt_ids", shape=[batch_size, seq_len],
+                      dtype="int64", append_batch_size=False)
+    tgt_len = layers.data(name="tgt_len", shape=[batch_size], dtype="int32",
+                          append_batch_size=False)
+    lbl = layers.data(name="lbl_ids", shape=[batch_size, seq_len],
+                      dtype="int64", append_batch_size=False)
+    avg_cost, _logits = transformer_nmt(
+        src, src_len, tgt, tgt_len, lbl, src_vocab_size, tgt_vocab_size,
+        n_layer, n_head, d_model, d_inner, dropout_rate,
+    )
+    return avg_cost, None, [src, src_len, tgt, tgt_len, lbl]

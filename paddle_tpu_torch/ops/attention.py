@@ -678,24 +678,97 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
-@register_op("fused_attention")
+_NEG = -1e30
+
+
+def _ceil_to(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def flash_attention_dropout(q, k, v, key, rate, causal=False, scale=None,
+                            lengths=None, block_k=512, layout="bhtd"):
+    """Attention with dropout on its probabilities: the reference's XLA
+    ``flash_attention`` (paddle_tpu/ops/attention.py:52-127), where its
+    dispatch sends every ``dropout_rate > 0`` (``_use_pallas``,
+    :811-820), in plain PyTorch. The keys are taken in blocks of
+    ``block_k`` (at most T rounded up to 128), with an online softmax over
+    the blocks; each block's unnormalised ``p`` is dropped as ``p * bits /
+    (1 - rate)`` while the row sum ``l`` is taken from the undropped ``p``
+    (so the kept weights are scaled up, not renormalised), and a row with
+    no valid key gives 0. q is scaled in its own dtype, scores and sums
+    are fp32, ``p`` meets v in v's dtype. Block j's bits come from
+    ``rng.fold(key, j)`` (ops/rng.py), as the reference folds j into its
+    key. It materialises one block's (B, H, Tq, block_k) probabilities at
+    a time; autograd differentiates it."""
+    from . import rng
+
+    qh, kh, vh = (_to_bhtd(x, layout) for x in (q, k, v))
+    b, h, t, d = qh.shape
+    tk = kh.shape[2]
+    scale = _scale_of(q, scale)
+    qh = prescale_q(qh, scale) if qh.dtype == _BF16 else qh * scale
+    bk = min(int(block_k), _ceil_to(tk, 128))
+    pk = _ceil_to(tk, bk)
+    if pk != tk:
+        pad = (0, 0, 0, pk - tk)
+        kh, vh = (torch.nn.functional.pad(x, pad) for x in (kh, vh))
+    dev = q.device
+    q_idx = torch.arange(t, device=dev)
+    valid = (torch.full((b,), tk, device=dev) if lengths is None
+             else lengths.reshape(-1).to(dev))
+    qf = qh.float()
+    acc = torch.zeros((b, h, t, d), dtype=torch.float32, device=dev)
+    m = torch.full((b, h, t), _NEG, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, h, t), dtype=torch.float32, device=dev)
+    for j in range(pk // bk):
+        kb = kh[:, :, j * bk:(j + 1) * bk]
+        vb = vh[:, :, j * bk:(j + 1) * bk]
+        s = torch.matmul(qf, kb.float().transpose(-1, -2))   # (B,H,T,BK)
+        col = j * bk + torch.arange(bk, device=dev)
+        mask = (col[None, :] <= q_idx[:, None]) if causal else \
+            torch.ones((t, bk), dtype=torch.bool, device=dev)
+        mask = mask[None, None] & (col[None, None, None, :]
+                                   < valid[:, None, None, None])
+        s = torch.where(mask, s, torch.full_like(s, _NEG))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        # re-masked after the max: a row with every key so far masked has
+        # s == m_new == _NEG, and exp(0) would count it
+        p = torch.where(mask, torch.exp(s - m_new[..., None]),
+                        torch.zeros_like(s))
+        bits = rng.keep_mask(rng.fold(key, j), p.shape, rate)
+        p_drop = p * bits / (1.0 - rate)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.matmul(
+            p_drop.to(vb.dtype).float(), vb.float())
+        m = m_new
+    out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+    return out.transpose(1, 2) if layout == "bthd" else out
+
+
+@register_op("fused_attention", keyed=True)
 def _fused_attention(ctx):
     """Inputs Q,K,V: (B, H, T, Dh) — or (B, T, H, Dh) with attr
     layout="bthd" (+ optional Lengths for KV padding). Attrs: causal,
-    scale, dropout_rate, layout (block_k rides the desc; the kernels pick
-    their own tiles). Differentiable through FlashAttention; under bf16
-    AMP the interpreter hands it bf16 q, k, v. Attention dropout is a
-    later slice."""
+    scale, dropout_rate, layout, block_k. Without dropout (rate 0, or
+    is_test) it runs FlashAttention, K1 and K2 (or K4) on the card, which
+    mask keys by Lengths; under bf16 AMP the interpreter hands it bf16 q,
+    k, v. With dropout it takes the reference's own dispatch for
+    dropout, its XLA flash attention (flash_attention_dropout, plain
+    PyTorch; the draw is the op's key, so a graph keeps it)."""
     q, k, v = ctx.input("Q"), ctx.input("K"), ctx.input("V")
     dropout_rate = float(ctx.attr("dropout_rate", 0.0) or 0.0)
     if ctx.is_test:
         dropout_rate = 0.0
-    if dropout_rate:
-        raise NotImplementedError(
-            "attention dropout is a later slice of the port")
     layout = str(ctx.attr("layout", "bhtd") or "bhtd").lower()
     if layout not in ("bthd", "bhtd"):
         raise ValueError("layout must be 'bthd' or 'bhtd', got %r" % (layout,))
+    causal = bool(ctx.attr("causal", False))
+    if dropout_rate:
+        return {"Out": flash_attention_dropout(
+            q, k, v, ctx.rng_key().to(q.device), dropout_rate, causal,
+            ctx.attr("scale", None), ctx.input("Lengths"),
+            int(ctx.attr("block_k", 512) or 512), layout)}
     return {"Out": FlashAttention.apply(
-        q, k, v, ctx.input("Lengths"), bool(ctx.attr("causal", False)),
-        ctx.attr("scale", None), layout)}
+        q, k, v, ctx.input("Lengths"), causal, ctx.attr("scale", None),
+        layout)}

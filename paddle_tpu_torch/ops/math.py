@@ -1,8 +1,9 @@
 """Math / tensor op kernels (counterpart of paddle_tpu/ops/math.py).
 
-The ops of the decoder LM's programs: elementwise_add with the
-reference's axis-broadcast rule, mean, relu, softmax, mul/matmul,
-reshape/transpose, gather, lookup_table, cast, assign/assign_value and
+The ops of the Transformer's programs: elementwise_add, _mul and _div
+with the reference's axis-broadcast rule, scale, mean, reduce_sum, relu,
+softmax, softmax_with_cross_entropy, mul/matmul, reshape/transpose,
+unstack, gather, lookup_table, cast, assign/assign_value and
 fill_constant. They are plain PyTorch on whatever device their inputs lie
 on; the 2-D products go to ``torch.matmul``, as the JAX package left them
 to XLA. Under bf16 AMP a product takes bf16 operands, sums in fp32 and
@@ -49,17 +50,51 @@ def _promote(x, y):
     return x, y
 
 
-@register_op("elementwise_add")
-def _elementwise_add(ctx):
+def _elementwise(fn):
+    def kern(ctx):
+        x = ctx.input("X")
+        y = _broadcast_y(x, ctx.input("Y"), ctx.attr("axis", -1))
+        return {"Out": fn(*_promote(x, y))}
+
+    return kern
+
+
+register_op("elementwise_add")(_elementwise(torch.add))
+register_op("elementwise_mul")(_elementwise(torch.mul))
+register_op("elementwise_div")(_elementwise(torch.div))
+
+
+@register_op("scale")
+def _scale(ctx):
+    """x * scale + bias, or (x + bias) * scale with bias_after_scale off
+    (reference: scale_op.cc); the attrs are weak scalars, so x keeps its
+    dtype."""
+    s = float(ctx.attr("scale", 1.0))
+    b = float(ctx.attr("bias", 0.0))
     x = ctx.input("X")
-    y = _broadcast_y(x, ctx.input("Y"), ctx.attr("axis", -1))
-    return {"Out": torch.add(*_promote(x, y))}
+    out = x * s + b if ctx.attr("bias_after_scale", True) else (x + b) * s
+    return {"Out": out}
 
 
 @register_op("mean")
 def _mean(ctx):
     """Mean of every element, a 0-d tensor (reference: mean_op.cc)."""
     return {"Out": torch.mean(ctx.input("X"))}
+
+
+@register_op("reduce_sum")
+def _reduce_sum(ctx):
+    """Sum over ``dim`` (every axis with reduce_all), keep_dim as the
+    reference's reduce_op.cc."""
+    x = ctx.input("X")
+    keep = bool(ctx.attr("keep_dim", False))
+    if ctx.attr("reduce_all", False):
+        out = torch.sum(x)
+        return {"Out": out.reshape((1,) * x.ndim) if keep else out}
+    dim = ctx.attr("dim", [0])
+    dims = dim if isinstance(dim, (list, tuple)) else [dim]
+    axes = tuple(sorted({int(d) % x.ndim for d in dims}))
+    return {"Out": torch.sum(x, dim=axes, keepdim=keep)}
 
 
 @register_op("relu")
@@ -71,6 +106,32 @@ def _relu(ctx):
 def _softmax(ctx):
     """Softmax over the last axis (reference: softmax_op.cc)."""
     return {"Out": torch.softmax(ctx.input("X"), dim=-1)}
+
+
+@register_op("softmax_with_cross_entropy")
+def _softmax_with_cross_entropy(ctx):
+    """Fused softmax + cross entropy over the last axis (reference:
+    softmax_with_cross_entropy_op.cc): Loss (..., 1) and Softmax. Hard
+    labels (..., 1) or (...,) int ids, a position whose label is
+    ``ignore_index`` contributing 0; soft labels a distribution of the
+    logits' shape."""
+    logits = ctx.input("Logits")
+    label = ctx.input("Label")
+    logp = torch.log_softmax(logits, dim=-1)
+    if ctx.attr("soft_label", False):
+        loss = -torch.sum(label * logp, dim=-1, keepdim=True)
+    else:
+        lbl = label.reshape(label.shape[:-1]) if label.shape[-1] == 1 \
+            else label
+        lbl = lbl.long()
+        ignore = ctx.attr("ignore_index", -100)
+        hit = lbl == ignore
+        # an ignored (or any out-of-range) id picks column 0, then counts 0
+        safe = torch.where((lbl >= 0) & (lbl < logp.shape[-1]), lbl,
+                           torch.zeros_like(lbl))
+        loss = -torch.gather(logp, -1, safe[..., None])
+        loss = torch.where(hit[..., None], torch.zeros_like(loss), loss)
+    return {"Loss": loss, "Softmax": torch.exp(logp)}
 
 
 # ---------------------------------------------------------------------------
@@ -142,6 +203,13 @@ def _reshape(ctx):
 @register_op("transpose")
 def _transpose(ctx):
     return {"Out": ctx.input("X").permute(*ctx.attr("axis"))}
+
+
+@register_op("unstack")
+def _unstack(ctx):
+    """The slices of X along ``axis``, each without that axis (views)."""
+    x = ctx.input("X")
+    return {"Y": list(torch.unbind(x, dim=int(ctx.attr("axis", 0)) % x.ndim))}
 
 
 # ---------------------------------------------------------------------------

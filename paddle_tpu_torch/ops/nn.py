@@ -1,11 +1,12 @@
 """Neural-net op kernels (counterpart of paddle_tpu/ops/nn.py): the
-decoder LM's layer_norm, and gaussian_random, the random initializer of
-its startup program."""
+Transformer's layer_norm and dropout, and gaussian_random, the random
+initializer of its startup program."""
 from __future__ import annotations
 
 import torch
 
 from ..framework.dtypes import as_torch_dtype
+from . import rng
 from .registry import register_op
 
 
@@ -42,3 +43,41 @@ def _gaussian_random(ctx):
     out = out * float(ctx.attr("std", 1.0)) + float(ctx.attr("mean", 0.0))
     return {"Out": out.to(as_torch_dtype(ctx.attr("dtype", "float32")))}
 
+
+
+def _fixed_key(op, device):
+    """The key of an op whose own seed is fixed (``fix_seed``, or a
+    nonzero ``seed`` attr as layers.dropout sets it): the same mask every
+    step, the reference Paddle's fixed-seed dropout; None otherwise."""
+    seed = int(op.attr("seed", 0) or 0)
+    if not (op.attr("fix_seed", False) or seed):
+        return None
+    return rng.op_key(rng.counter_key(rng.make_counter(seed, 0, device)),
+                      rng.mix(seed))
+
+
+@register_op("dropout", keyed=True)
+def _dropout(ctx):
+    """reference dropout_op.h. ``downgrade_in_infer`` (the default) masks
+    in training and scales by (1 - p) at is_test; ``upscale_in_train``
+    divides the kept values by (1 - p) in training and is the identity at
+    is_test. ``Mask`` is the keep mask in x's dtype (ones when nothing is
+    drawn); the backward multiplies by the forward's own mask. The mask is
+    a counter-based hash of the op's key (ops/rng.py), so a training step
+    that holds dropout stays one CUDA graph replay and draws anew each
+    step; its bits differ from JAX's."""
+    x = ctx.input("X")
+    p = float(ctx.attr("dropout_prob", 0.5))
+    impl = ctx.attr("dropout_implementation", "downgrade_in_infer")
+    if ctx.is_test or p == 0.0:
+        if p != 0.0 and impl == "downgrade_in_infer":
+            return {"Out": x * (1.0 - p), "Mask": torch.ones_like(x)}
+        return {"Out": x, "Mask": torch.ones_like(x)}
+    key = _fixed_key(ctx.op, x.device)
+    if key is None:
+        key = ctx.rng_key()
+    keep = rng.keep_mask(key.to(x.device), x.shape, p)
+    kept = x / (1.0 - p) if impl == "upscale_in_train" else x
+    return {"Out": torch.where(keep, kept, torch.zeros((), dtype=x.dtype,
+                                                       device=x.device)),
+            "Mask": keep.to(x.dtype)}

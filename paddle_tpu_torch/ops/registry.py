@@ -25,15 +25,22 @@ KERNELS: Dict[str, Callable] = {}
 # by op on every call (executor.py, the random-op rule), since a replayed
 # CUDA graph would repeat the host-seeded generators of its capture
 RANDOM_OPS: Set[str] = set()
+# ops whose kernels may draw from ``ctx.rng_key()``, a key the device
+# computes from the step's random counter (ops/rng.py): a graph replays
+# them with fresh bits, so they keep the graph. Whether an instance draws
+# (dropout at is_test or p 0 draws nothing) is its kernel's decision
+KEYED_OPS: Set[str] = set()
 
 
-def register_op(op_type: str, random: bool = False):
+def register_op(op_type: str, random: bool = False, keyed: bool = False):
     def deco(fn):
         if op_type in KERNELS:
             raise ValueError("duplicate kernel for op %r" % op_type)
         KERNELS[op_type] = fn
         if random:
             RANDOM_OPS.add(op_type)
+        if keyed:
+            KEYED_OPS.add(op_type)
         return fn
 
     return deco
@@ -54,8 +61,8 @@ class OpContext:
     """Per-op view handed to a kernel by the interpreter. ``device`` is
     where the program runs: ops that make tensors from attrs
     (assign_value, fill_constant, gaussian_random) put them there.
-    ``rng_fn`` makes the op's random generators (framework/interpreter.py
-    RngStream.for_op)."""
+    ``rng_fn`` makes the op's random generators and keys
+    (framework/interpreter.py RngStream.for_op)."""
 
     def __init__(self, op, env, block, device, rng_fn):
         self._op = op
@@ -101,6 +108,13 @@ class OpContext:
         block, the op's position (or ``__rng_idx__`` stamp), the draw
         count and the program's step; the bits differ from JAX's."""
         return self._rng_fn()
+
+    def rng_key(self):
+        """The (1,) int64 key of this op's next draw, on its device: a hash
+        of the step's random counter (a device tensor a graph reads, so a
+        replay draws anew) and of the op's place in the program and draw
+        number (ops/rng.py). Turn it into bits with ``rng.keep_mask``."""
+        return self._rng_fn.key()
 
     @property
     def is_test(self) -> bool:

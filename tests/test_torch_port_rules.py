@@ -857,3 +857,140 @@ def test_chip_smoke_train_files_rehearses_on_cpu(tmp_path):
     json.dumps(ip)
     assert ip["batches_per_s"] > 0 and ip["threads_batches_per_s"] > 0
     assert ip["transport"] == {"shm": 4, "pickle": 0}
+
+
+def test_dropout_keeps_the_training_step_one_graph():
+    """dropout (and attention dropout) draw from a device key, not from a
+    host-seeded generator: they are not random ops, so a training step
+    that holds them takes the executor's graph path (the planner's random
+    flag is False, its keyed flag True, the step one cached GraphStep fed
+    the [seed, step] counter), and the same step run op by op draws the
+    same masks."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.executor import RNG_FEED
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.ops.registry import KEYED_OPS, RANDOM_OPS
+    from paddle_tpu_torch.serving.engine import GraphStep
+
+    assert "dropout" not in RANDOM_OPS and "dropout" in KEYED_OPS
+    assert "fused_attention" in KEYED_OPS
+    assert "gaussian_random" in RANDOM_OPS
+    prog, startup = pt.Program(), pt.Program()
+    with pt.program_guard(prog, startup), pt.unique_name.guard():
+        ids = layers.data(name="ids", shape=[2, 8], dtype="int64",
+                          append_batch_size=False)
+        loss, _ = T.transformer_lm(ids, ids, 32, n_layer=1, n_head=2,
+                                   d_model=16, d_inner=32, max_len=8,
+                                   dropout_rate=0.1)
+        optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    types = {op.type for op in prog.global_block().ops}
+    assert "dropout" in types and not types & RANDOM_OPS
+    exe, scope = pt.Executor(pt.CPUPlace()), pt.Scope()
+    exe.run(startup, scope=scope)
+    feed = {"ids": np.arange(16, dtype=np.int64).reshape(2, 8) % 32}
+    state_in, _, random, keyed = exe._plan(prog, feed)
+    assert random is False and keyed is True
+    mask = next(op.output("Mask")[0] for op in prog.global_block().ops
+                if op.type == "dropout")
+    saved = {n: scope.find_var(n).clone() for n in state_in}
+    calls = []
+    run = GraphStep._run
+
+    def spy(step, feeds, read, replay):
+        calls.append(sorted(feeds))
+        return run(step, feeds, read, replay)
+
+    GraphStep._run = spy
+    try:
+        got = exe.run(prog, feed=feed, fetch_list=[loss, mask], scope=scope)
+        for n, v in saved.items():
+            scope.set_var(n, v.clone())
+        exe.set_program_steps(prog, 0)
+        again = exe.run(prog, feed=feed, fetch_list=[loss, mask],
+                        scope=scope)
+    finally:
+        GraphStep._run = run
+    assert len(calls) == 2 and all(RNG_FEED in c for c in calls)
+    assert len(exe.step_cache) == 1
+    np.testing.assert_array_equal(again[1], got[1])
+    assert float(again[0]) == float(got[0])
+    # the next step draws another mask
+    other = exe.run(prog, feed=feed, fetch_list=[mask], scope=scope)
+    assert not np.array_equal(other[0], got[1])
+
+
+def test_chip_smoke_nmt_and_lm_variants_rehearse_on_cpu(tmp_path):
+    """chip_smoke's nmt phase at a tiny size on the CPU, fp32 and bf16 O2,
+    at dropout 0 and 0.1: timed graph and eager turns, the graph step
+    equal to the eager step of the same state and step (bitwise), the
+    plain attention steps (in fp32 also with the ReLUs pinned to the
+    kernel step's signs: none flips here) and the fused backward against
+    it, every dropout op's mask different in two successive steps and
+    within its binomial bound, no kernel launch counted (the CPU runs the plain versions); then the
+    lm_variants phase: fused q/k/v and the unfused head against the
+    separate-projection, fused-head step: the fp32 gates held, and of
+    the bf16 comparisons what this size can measure."""
+    sys.path.insert(0, ROOT)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(ROOT)
+    cfg = dict(src_vocab_size=50, tgt_vocab_size=60, n_layer=2, n_head=2,
+               d_model=32, d_inner=64)
+    none = dict.fromkeys(chip_smoke.FP32_KERNELS + chip_smoke.BF16_KERNELS,
+                         0)
+    for amp in (None, "O2"):
+        for rate in (0.0, 0.1):
+            r = chip_smoke.run_nmt(cfg, 3, 16, 4, 1e-2, 1, 1, rate, 0,
+                                   pt.CPUPlace(), str(tmp_path), amp)
+            json.dumps(r)
+            assert r["launches_per_step"] == none
+            assert r["main_path_host_launches"] == none
+            assert r["graph_vs_eager"]["bitwise"], r["graph_vs_eager"]
+            assert np.all(np.isfinite(r["losses"]))
+            assert r["target_tokens"] == sum(
+                chip_smoke.nmt_feed(cfg, 3, 16, 4, 0, "cpu")["tgt_len"]
+                .tolist())
+            if rate:
+                assert r["masks"]["ops"] == 4 and r["masks"]["steps_differ"]
+                assert r["masks"]["dtype"] == ("torch.bfloat16" if amp
+                                               else "torch.float32")
+                assert r["draws"]["attention_block_kept_share"] > 0.85
+            else:
+                assert r["fused_bwd_vs_split"]["ok"]
+                assert r["fused_bwd_launches"] == none
+                assert r["plain_launches"] == none
+                assert r["kernels_vs_plain"]["ok"]
+                if not amp:
+                    # both steps run the plain attention on the CPU: the
+                    # same ReLU signs, the pinned step the unpinned one
+                    flips = r["relu_flips"]
+                    assert flips["relus"] == 4 and flips["flips"] == 0
+                    assert flips["units"] == 4 * 3 * 16 * cfg["d_inner"]
+                    assert r["kernels_vs_plain_unpinned"]["ok"]
+                    assert r["kernels_vs_plain"]["loss"] == \
+                        r["kernels_vs_plain_unpinned"]["loss"]
+                    assert r["bwd_kernels_vs_plain_bwd"]["ok"]
+                    assert r["plain_bwd_launches"] == none
+    tcfg = dict(vocab_size=61, n_layer=2, n_head=2, d_model=32,
+                d_inner=64, max_len=16)
+    # the card gates the bf16 comparisons with compare_amp in full; at
+    # this size one Adam step from a near-zero bias moves it by a share of
+    # lr that bf16 rounding changes, so the per-parameter ratios are no
+    # measure: the loss, the gradients and the global distances are
+    lv = chip_smoke.run_lm_variants(tcfg, 2, 16, 1e-2, 1, 0, pt.CPUPlace(),
+                                    str(tmp_path), amp_gates=False)
+    json.dumps(lv)
+    assert set(lv["gates_held"]) == {"fused_qkv_vs_separate_fp32",
+                                     "unfused_vs_fused_head_fp32"}
+    assert all(lv["gates_held"].values())
+    assert lv["fused_qkv_vs_separate"]["loss_ratio"] == 0.0
+    for key in ("fused_qkv_vs_separate", "unfused_vs_fused_head"):
+        got = lv[key]
+        assert got["loss_ratio"] <= chip_smoke.AMP_LOSS_RHO, got
+        assert got["grad_ratio_global"] <= chip_smoke.AMP_RHO, got
+        assert got["grad_far_ratio"] <= chip_smoke.AMP_FAR, got
+        assert got["param_far_ratio"] <= chip_smoke.AMP_FAR, got
+        assert got["zero_grad_share_of_largest"] <= \
+            chip_smoke.AMP_ZERO_GRAD_TOL, got
+    assert lv["fused_qkv_replay_launches"] == none
