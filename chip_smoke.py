@@ -141,6 +141,29 @@ Each phase prints one JSON line:
    fused-head step from one state (gates at the top of this file), the
    fused q/k/v step timed beside the separate one in turns, 12 of each
    bf16 kernel in their replays.
+   moe: TRAIN_CONFIG with MOE_EXPERTS experts (layers.moe_ffn's defaults:
+   top-2, capacity factor 2.0), 924,518,400 parameters, bf16 O2, Adam,
+   timed and profiled as train_amp is (busy ms with the indexing
+   kernels apart as "routing"; the graph's pool GB; 12 of each bf16
+   kernel and one graph launch in the main path's step), each layer's
+   kept share of (token, choice) pairs after one step op by op; then at
+   MOE_COMPARE_LAYERS layers, full width, from one saved state: the graph
+   step against the same step op by op (bitwise), and against the plain
+   attention's step with every layer's routing pinned to the kernel
+   step's (compare_amp, relative to the fp32 step pinned the same way;
+   the flipped choices counted, run_moe). nmt_noam: the nmt phase's bf16
+   Transformer-base under noam_decay(512, NOAM_WARMUP) and Adam(β2 0.98,
+   ε 1e-9): each step's fetched lr against d^-0.5 min(s^-0.5, s
+   w^-1.5) at NOAM_LR_RTOL, 18 of each bf16 kernel and one graph launch
+   a step, run_loop(NOAM_LOOP) against as many runs (bitwise, the step
+   counter included), its step ms beside the fixed-lr nmt step's.
+   optimizers: TRAIN_CONFIG at OPT_LAYERS layers, bf16 O2, trained by
+   each of OPT_RECIPES (every optimizer, Nesterov, L2 decay, global-norm
+   clipping, LARS, ModelAverage): step ms beside Adam's, one graph launch
+   and 2 of each bf16 kernel a step, graph = eager bitwise,
+   ModelAverage's apply and restore in place and the replay after them
+   against the eager step; every optimizer op against its float64
+   evaluation at OPT_OP_RTOL.
 5. slice: the flagship serving config at full width (vocab 32768, 12
    layers, d_model 1024, 8 heads, d_inner 4096, max_len 2048), random
    weights from --seed. The export is written with save_decode_model,
@@ -455,6 +478,19 @@ NMT_LR, NMT_DROPOUT, NMT_WARM, NMT_STEPS = 1e-4, 0.1, 2, 3
 # a dropout mask of n elements keeps n (1 - p) of them give or take
 # KEEP_SIGMAS binomial standard deviations, sqrt(n p (1 - p))
 KEEP_SIGMAS = 6
+# the training surface: the MoE LM (TRAIN_CONFIG with 8 experts, top-2,
+# capacity factor 2.0: Mixtral 8x7B's routing), its comparisons at
+# MOE_COMPARE_LAYERS layers; the noam recipe (Vaswani et al. 2017 §5.3)
+# on NMT_CONFIG; every optimizer on TRAIN_CONFIG cut to OPT_LAYERS layers
+MOE_EXPERTS, MOE_COMPARE_LAYERS, MOE_STEPS = 8, 2, 3
+NOAM_WARMUP, NOAM_STEPS, NOAM_LOOP = 4000, 5, 3
+NOAM_ADAM = dict(beta1=0.9, beta2=0.98, epsilon=1e-9)
+NOAM_LR_RTOL = 1e-6
+OPT_LAYERS, OPT_WARM, OPT_STEPS = 2, 2, 3
+OPT_OP_RTOL = 1e-6
+OPT_OP_TYPES = ("sgd", "momentum", "adam", "adamax", "adagrad",
+                "decayed_adagrad", "adadelta", "rmsprop", "ftrl",
+                "proximal_gd", "proximal_adagrad", "average_accumulates")
 
 
 def fail(msg):
@@ -2806,20 +2842,30 @@ def _port_source(name):
     return None
 
 
-def _kernel_kind(name):
+# the kernels that move tokens by index: the MoE routing, dispatch and
+# combine (argmax, cumsum, gather, index_put, index_select and their
+# backward), and with them every other indexing kernel of the step
+# (embedding lookups and their backward)
+ROUTING_WORDS = ("index", "scatter", "gather", "scan", "argmax", "cumsum")
+
+
+def _kernel_kind(name, routing=False):
     """products (cuBLAS/CUTLASS matrix products), attention (the port's
-    hand-written kernels: every kernel its csrc/ sources declare), or
-    other (elementwise, reductions, copies)."""
+    hand-written kernels: every kernel its csrc/ sources declare), with
+    ``routing`` the indexing kernels (ROUTING_WORDS), or other
+    (elementwise, reductions, copies)."""
     if _port_source(name) is not None:
         return "attention"
     low = name.lower()
     if any(w in low for w in ("gemm", "xmma", "cutlass", "cublas",
                               "nvjet")):
         return "products"
+    if routing and any(w in low for w in ROUTING_WORDS):
+        return "routing"
     return "other"
 
 
-def profile_call(fn, table_path):
+def profile_call(fn, table_path, routing=False):
     """One call of ``fn`` under torch.profiler: the device's busy time (the
     sum of its kernels and copies), the call's wall time, the idle share
     they give (both from this one call; the profiler slows the host, so
@@ -2844,10 +2890,12 @@ def profile_call(fn, table_path):
                   key=lambda e: -e.self_cpu_time_total)
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
     by_kind = {"products": 0.0, "attention": 0.0, "other": 0.0}
+    if routing:
+        by_kind["routing"] = 0.0
     by_source, by_kernel = {}, {}
     for e in dev:
         ms = e.self_device_time_total / 1e3
-        by_kind[_kernel_kind(e.key)] += ms
+        by_kind[_kernel_kind(e.key, routing)] += ms
         src = _port_source(e.key)
         if src is not None:
             got = by_source.setdefault(src, {"device_ms": 0.0,
@@ -3270,16 +3318,17 @@ class _Trainer:
         return self.exe.run(program or self.main, self.feed, [self.loss],
                             scope=self.scope, return_numpy=False)
 
-    def timed_turns(self, warm, steps, table, t0):
+    def timed_turns(self, warm, steps, table, t0, save=True, routing=False):
         """Warm graph steps (the first builds the kernels and captures),
         then ``steps`` steps per turn, graph, eager, eager, graph: ms,
         tokens/s and peak memory by mode, the host's kernel launches per
         step by mode (0 in a replay), the losses of the warm steps and
-        the first turn (``self.saved``: a copy of the state after them,
-        where the comparisons of one step start); then a profiled step of
-        each mode, the graph one the main path's run (host counts zeroed
-        just before it: they must stay 0, the device's counters count the
-        kernels inside the replay)."""
+        the first turn (with ``save``, ``self.saved``: a copy of the state
+        after them, where the comparisons of one step start); then a
+        profiled step of each mode, the graph one the main path's run
+        (host counts zeroed just before it: they must stay 0, the device's
+        counters count the kernels inside the replay), busy time by kind
+        (with ``routing``, the indexing kernels apart)."""
         torch = self.torch
         self.sync()
         setup_s = time.perf_counter() - t0
@@ -3302,7 +3351,8 @@ class _Trainer:
                     got["step_ms"].append((time.perf_counter() - t1) * 1e3)
             if turn == 0:
                 losses += got["losses"]
-                self.saved = self.save()
+                if save:
+                    self.saved = self.save()
             got["host_launches"].append(
                 {k: n / steps for k, n in _launch_counts(
                     keys=self.keys).items()})
@@ -3340,7 +3390,7 @@ class _Trainer:
         if self.cuda:
             _device_counts((), reset=True)
             graph["profile"] = profile_call(self.step, os.path.join(
-                self.workdir, table + "_ops.txt"))
+                self.workdir, table + "_ops.txt"), routing)
             res["launches_per_step"] = _device_counts(self.keys)
             res["profiler_launches_per_step"] = {
                 k: graph["profile"]["kernel_launches"].get(KERNEL_SYMBOLS[k],
@@ -3353,7 +3403,7 @@ class _Trainer:
         if self.cuda:
             with eager_steps():
                 eager["profile"] = profile_call(self.step, os.path.join(
-                    self.workdir, table + "_eager_ops.txt"))
+                    self.workdir, table + "_eager_ops.txt"), routing)
             res["profile"] = graph["profile"]
         return res
 
@@ -4465,6 +4515,508 @@ def run_lm_variants(config, batch, seq, lr, steps, seed, place, workdir,
 # ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
+# the training surface: the MoE LM, the noam recipe, every optimizer
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def moe_routing(record=None, pinned=None, flips=None, kept=None):
+    """Every moe_ffn call's routing observed or pinned (parallel/moe.py):
+    with ``record`` (a list) each round's expert choices are appended to
+    it; with ``pinned`` (such a list, from another step) each round takes
+    the recorded choices instead of its own, and appends to ``flips`` how
+    many of its own choices differ; with ``kept`` each call's share of
+    (token, choice) pairs kept under the capacity is appended. For steps
+    op by op: a replayed graph calls none of this."""
+    from paddle_tpu_torch.parallel import moe
+
+    first_max, slots = moe.first_max, moe.dispatch_slots
+    it = iter(pinned) if pinned is not None else None
+
+    def pick(remaining):
+        own = first_max(remaining)
+        if it is not None:
+            want = next(it)
+            flips.append(int((own != want).sum()))
+            own = want
+        if record is not None:
+            record.append(own.detach().clone())
+        return own
+
+    def dispatch(choices, num_experts, capacity):
+        rows, keep = slots(choices, num_experts, capacity)
+        if kept is not None:
+            kept.append(keep.float().mean())
+        return rows, keep
+
+    moe.first_max, moe.dispatch_slots = pick, dispatch
+    try:
+        yield
+    finally:
+        moe.first_max, moe.dispatch_slots = first_max, slots
+
+
+def _free(*objs):
+    """Drop an earlier phase's executor (its cached steps and graph
+    pools) and return the allocator's cache to the card."""
+    import gc
+
+    import torch
+
+    for obj in objs:
+        obj.close()
+    if torch.cuda.is_available():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def run_moe(config, batch, seq, lr, warm, steps, seed, place, workdir,
+            compare_layers=MOE_COMPARE_LAYERS):
+    """Train the MoE LM (``config`` with ``moe_experts``; the layer's
+    defaults k 2, capacity factor 2.0) in bf16 O2 as bench.py trains its
+    LM: timed in turns, graph and op by op, the main path's graph step
+    profiled (busy ms by kind, the indexing kernels as "routing"), then
+    one step op by op reading each layer's kept share of (token, choice)
+    pairs. Then at ``compare_layers`` layers, full width, from one saved
+    state: the step through its graph against the same step op by op
+    (graph_vs_eager, bitwise), and against the plain attention's step
+    with every MoE layer's routing pinned to the kernel step's choices
+    (moe_routing; the flips counted), relative to the fp32 program's step
+    (pinned the same way) by compare_amp. Runs on any place (the CPU
+    tests rehearse it at a tiny size); the caller checks the launches."""
+    from paddle_tpu_torch import Executor, Scope
+    from paddle_tpu_torch.parallel.moe import moe_capacity
+
+    keys = FP32_KERNELS + BF16_KERNELS
+    t0 = time.perf_counter()
+    main, startup, loss = build_train(config, batch, seq, lr, seed, "O2")
+    exe, scope = Executor(place), Scope()
+    exe.run(startup, scope=scope)
+    t = _Trainer(exe, scope, main, loss, config, batch, seq, seed, keys,
+                 workdir)
+    experts = config["moe_experts"]
+    res = {"phase": "moe", "amp_level": "O2", "config": config,
+           "batch": batch, "seq": seq, "lr": lr, "params": t.n_params,
+           "experts": experts, "k": 2, "capacity_factor": 2.0,
+           "capacity": moe_capacity(batch * seq, experts, 2.0)}
+    res.update(t.timed_turns(warm, steps, "moe_step", t0, save=False,
+                             routing=True))
+    (main_step,) = exe.step_cache.steps()
+    res["graph_pool_gb"] = main_step.pool_bytes / 1e9
+    res["step_gb"] = main_step.nbytes / 1e9
+    res["graph_launches_per_step"] = (
+        res["profile"]["host_launch_calls"]["graph_launches"] if t.cuda
+        else None)
+    kept = []
+    with moe_routing(kept=kept), eager_steps():
+        t.step()
+    res["kept_share_by_layer"] = [float(v) for v in kept]
+    res["step_cache"] = t.cache_line()
+    del t, main_step, scope
+    _free(exe)
+
+    cfg = dict(config, n_layer=compare_layers)
+    main, startup, loss = build_train(cfg, batch, seq, lr, seed, "O2")
+    exe, scope = Executor(place), Scope()
+    exe.run(startup, scope=scope)
+    t = _Trainer(exe, scope, main, loss, cfg, batch, seq, seed, keys,
+                 workdir)
+    for _ in range(warm):
+        t.step()
+    saved, nothing = t.save(), contextlib.nullcontext
+    graph, _ = t.one_step(main, saved, nothing())
+    choices, flips, flips_far = [], [], []
+    with moe_routing(record=choices):
+        eager, _ = t.one_step(main, saved, nothing(), eager=True)
+    with moe_routing(pinned=choices, flips=flips):
+        plain, res["plain_launches"] = t.one_step(
+            main, saved, plain_attention(), eager=True)
+    with moe_routing(pinned=choices, flips=flips_far):
+        far, _ = t.one_step(build_train(cfg, batch, seq, lr, seed)[0],
+                            saved, nothing(), eager=True)
+    res["compare_layers"] = compare_layers
+    res["graph_vs_eager"] = graph_vs_eager(graph, eager, compare_amp(
+        graph, eager, far, lr))
+    res["kernels_vs_plain"] = compare_amp(graph, plain, far, lr)
+    res["routing_flips"] = {
+        "choices": len(choices) * batch * seq, "plain": sum(flips),
+        "fp32": sum(flips_far), "plain_by_round": flips,
+        "fp32_by_round": flips_far}
+    del graph, eager, plain, far, saved, t, scope
+    _free(exe)
+    if not res["graph_vs_eager"]["bitwise"]:
+        fail("moe: the graph step is not the eager step bitwise: %s"
+             % json.dumps(res["graph_vs_eager"]))
+    if not res["kernels_vs_plain"]["ok"]:
+        fail("moe: the kernel step against the plain attention's (routing "
+             "pinned) failed: %s" % json.dumps(res["kernels_vs_plain"]))
+    if not all(0 < s <= 1 for s in res["kept_share_by_layer"]):
+        fail("moe: kept shares %s" % res["kept_share_by_layer"])
+    return res
+
+
+def build_nmt_noam(config, batch, seq, seed):
+    """get_model's Transformer under the paper's recipe (Vaswani et al.
+    2017 §5.3): noam_decay(d_model, NOAM_WARMUP) as the learning rate of
+    Adam(NOAM_ADAM), dropout 0, bf16 O2: (main, startup, loss, lr)."""
+    from paddle_tpu_torch import (Program, layers, optimizer, program_guard,
+                                  unique_name)
+    from paddle_tpu_torch.models import transformer
+
+    main, startup = Program(), Program()
+    main.random_seed = startup.random_seed = seed
+    with program_guard(main, startup), unique_name.guard():
+        loss, _, _ = transformer.get_model(
+            batch_size=batch, seq_len=seq, dropout_rate=0.0, **config)
+        lr = layers.noam_decay(config["d_model"], NOAM_WARMUP)
+        optimizer.Adam(learning_rate=lr, **NOAM_ADAM).minimize(loss)
+        main.enable_mixed_precision(level="O2")
+    return main, startup, loss, lr
+
+
+def noam_lr(d_model, warmup, s):
+    """d_model^-0.5 min(s^-0.5, s warmup^-1.5), in float64."""
+    s = np.asarray(s, np.float64)
+    return d_model ** -0.5 * np.minimum(s ** -0.5, s * warmup ** -1.5)
+
+
+def run_nmt_noam(config, batch, seq, min_len, seed, place, workdir, steps,
+                 loop_k):
+    """The nmt phase's bf16 O2 Transformer under noam_decay and Adam(β2
+    0.98, ε 1e-9): ``steps`` graph steps through Executor.run fetching the
+    loss and the lr (timed after the first two), then the main path's
+    step profiled (device counters zeroed before it); the lr of every
+    step against the formula at s = 1, 2, ...; then run_loop(loop_k)
+    from a saved state against loop_k run calls from it (every
+    persistable bitwise, the step counter among them, and the last lr)."""
+    import torch
+    from paddle_tpu_torch import Executor, Scope
+
+    keys = FP32_KERNELS + BF16_KERNELS
+    main, startup, loss, lr = build_nmt_noam(config, batch, seq, seed)
+    exe, scope = Executor(place), Scope()
+    exe.run(startup, scope=scope)
+    feed = nmt_feed(config, batch, seq, min_len, seed, exe.device)
+    tokens = int(feed["tgt_len"].sum())
+    t = _Trainer(exe, scope, main, loss, None, batch, seq, seed, keys,
+                 workdir, feed=feed, tokens=tokens)
+    lrs, ms, losses = [], [], []
+
+    def step():
+        out = exe.run(main, feed, [loss, lr], scope=scope,
+                      return_numpy=False)
+        losses.append(float(out[0]))
+        lrs.append(float(out[1].reshape(())))
+
+    for _ in range(steps):
+        t.sync()
+        t1 = time.perf_counter()
+        step()
+        ms.append((time.perf_counter() - t1) * 1e3)
+    res = {"phase": "nmt_noam", "amp_level": "O2", "config": config,
+           "batch": batch, "seq": seq, "warmup": NOAM_WARMUP,
+           "adam": NOAM_ADAM, "target_tokens": tokens, "step_ms": ms,
+           "step_ms_mean": float(np.mean(ms[2:]))}
+    res["tokens_per_s"] = tokens / (res["step_ms_mean"] / 1e3)
+    _launch_counts(reset=True)
+    if t.cuda:
+        _device_counts((), reset=True)
+        res["profile"] = profile_call(step, os.path.join(
+            workdir, "nmt_noam_step_ops.txt"))
+        res["launches_per_step"] = _device_counts(keys)
+        res["graph_launches_per_step"] = res["profile"][
+            "host_launch_calls"]["graph_launches"]
+    else:
+        step()
+        res["launches_per_step"] = dict.fromkeys(keys, 0)
+        res["graph_launches_per_step"] = None
+    res["main_path_host_launches"] = _launch_counts(keys=keys)
+    want = noam_lr(config["d_model"], NOAM_WARMUP,
+                   np.arange(1, len(lrs) + 1))
+    res["lrs"] = lrs
+    res["lr_rel_err_max"] = float(np.max(np.abs(np.asarray(lrs) - want)
+                                         / want))
+    res["losses"] = losses
+    saved = t.save()
+    counter = "@STEP_COUNTER@"
+    loop = exe.run_loop(main, feed, [loss, lr], steps=loop_k, scope=scope,
+                        return_numpy=False)
+    after_loop = t.save()
+    t.restore(saved)
+    for _ in range(loop_k):
+        runs = exe.run(main, feed, [loss, lr], scope=scope,
+                       return_numpy=False)
+    after_runs = t.save()
+    res["loop_vs_runs"] = {
+        "steps": loop_k, "counter_before": int(saved[counter][0]),
+        "counter_after": int(after_loop[counter][0]),
+        "lr": float(loop[1].reshape(())),
+        "bitwise": (all(torch.equal(after_loop[n], after_runs[n])
+                        for n in saved)
+                    and torch.equal(loop[0], runs[0])
+                    and torch.equal(loop[1], runs[1]))}
+    res["step_cache"] = t.cache_line()
+    del t, saved, after_loop, after_runs, scope
+    _free(exe)
+    if not res["lr_rel_err_max"] <= NOAM_LR_RTOL or \
+            not np.all(np.isfinite(losses)):
+        fail("nmt_noam: lr %s against %s (rel err %s), losses %s"
+             % (lrs, want.tolist(), res["lr_rel_err_max"], losses))
+    lvr = res["loop_vs_runs"]
+    if not lvr["bitwise"] or \
+            lvr["counter_after"] != lvr["counter_before"] + loop_k:
+        fail("nmt_noam: run_loop(%d) against %d runs: %s"
+             % (loop_k, loop_k, json.dumps(lvr)))
+    return res
+
+
+# each optimizer the phase trains, as a user would set it up
+OPT_RECIPES = ("Adam", "SGD", "Momentum", "Momentum_nesterov", "Adagrad",
+               "Adamax", "DecayedAdagrad", "Adadelta", "RMSProp", "Ftrl",
+               "Adam_L2Decay", "Adam_ClipByGlobalNorm", "Momentum_LARS",
+               "Adam_ModelAverage")
+
+
+def minimize_recipe(name, loss, main):
+    """Minimize ``loss`` by recipe ``name`` (OPT_RECIPES); returns the
+    ModelAverage of that recipe, else None."""
+    from paddle_tpu_torch import clip, layers, optimizer, regularizer
+
+    if name == "Momentum_LARS":
+        lr = layers.exponential_decay(1e-3, 1000, 0.9)
+        opt = optimizer.Momentum(lr, momentum=0.9)
+        params_grads = opt.backward(loss)
+        layers.append_LARS(params_grads, lr, 1e-4)
+        opt.apply_gradients(params_grads)
+        return None
+    if name == "Adam_ClipByGlobalNorm":
+        clip.set_gradient_clip(clip.GradientClipByGlobalNorm(1.0),
+                               program=main)
+    {"Adam": lambda: optimizer.Adam(1e-4),
+     "SGD": lambda: optimizer.SGD(1e-2),
+     "Momentum": lambda: optimizer.Momentum(1e-3, momentum=0.9),
+     "Momentum_nesterov": lambda: optimizer.Momentum(
+         1e-3, momentum=0.9, use_nesterov=True),
+     "Adagrad": lambda: optimizer.Adagrad(1e-3),
+     "Adamax": lambda: optimizer.Adamax(1e-4),
+     "DecayedAdagrad": lambda: optimizer.DecayedAdagrad(1e-3),
+     "Adadelta": lambda: optimizer.Adadelta(1.0),
+     "RMSProp": lambda: optimizer.RMSProp(1e-4),
+     "Ftrl": lambda: optimizer.Ftrl(1e-3, l1=1e-5, l2=1e-5),
+     "Adam_L2Decay": lambda: optimizer.Adam(
+         1e-4, regularization=regularizer.L2Decay(1e-4)),
+     "Adam_ClipByGlobalNorm": lambda: optimizer.Adam(1e-4),
+     "Adam_ModelAverage": lambda: optimizer.Adam(1e-4)}[name]().minimize(
+        loss)
+    if name == "Adam_ModelAverage":
+        return optimizer.ModelAverage(0.15, min_average_window=2,
+                                      max_average_window=10)
+    return None
+
+
+def build_recipe(config, batch, seq, seed, name):
+    """transformer_lm minimized by recipe ``name``, then bf16 O2:
+    (main, startup, loss, its ModelAverage or None)."""
+    from paddle_tpu_torch import (Program, layers, program_guard,
+                                  unique_name)
+    from paddle_tpu_torch.models import transformer
+
+    main, startup = Program(), Program()
+    main.random_seed = startup.random_seed = seed
+    with program_guard(main, startup), unique_name.guard():
+        ids = layers.data(name="ids", shape=[batch, seq], dtype="int64",
+                          append_batch_size=False)
+        labels = layers.data(name="labels", shape=[batch, seq],
+                             dtype="int64", append_batch_size=False)
+        loss, _ = transformer.transformer_lm(ids, labels, **config)
+        avg = minimize_recipe(name, loss, main)
+        main.enable_mixed_precision(level="O2")
+    return main, startup, loss, avg
+
+
+class _OpCtx:
+    """The smallest op context an optimizer kernel reads."""
+
+    def __init__(self, inputs, attrs):
+        self._inputs, self._attrs = inputs, attrs
+
+    def input(self, slot, default=None):
+        return self._inputs.get(slot, default)
+
+    def attr(self, name, default=None):
+        return self._attrs.get(name, default)
+
+
+def check_optimizer_ops(p, g):
+    """Every optimizer op of ops/optim.py on the card, in fp32, on a real
+    parameter ``p`` and its gradient ``g`` (accumulators made from them),
+    against the same formula in float64 on the same (fp32-valued) inputs:
+    each output's largest difference over its largest magnitude."""
+    import torch
+    from paddle_tpu_torch.ops import registry
+
+    dev = p.device
+
+    def one(v):
+        return torch.tensor([v], dtype=torch.float32, device=dev)
+
+    pos = g * g * 0.5 + 1e-8
+    base = {"Param": p, "Grad": g, "LearningRate": one(1e-3)}
+    cases = {
+        "sgd": ({}, {}),
+        "momentum": ({"Velocity": 0.1 * g}, {"mu": 0.9,
+                                             "use_nesterov": True}),
+        "adam": ({"Moment1": 0.1 * g, "Moment2": pos,
+                  "Beta1Pow": one(0.9 ** 3), "Beta2Pow": one(0.999 ** 3)},
+                 {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}),
+        "adamax": ({"Moment": 0.1 * g, "InfNorm": 0.5 * g.abs(),
+                    "Beta1Pow": one(0.9 ** 3)}, {}),
+        "adagrad": ({"Moment": pos}, {}),
+        "decayed_adagrad": ({"Moment": pos}, {}),
+        "adadelta": ({"AvgSquaredGrad": pos,
+                      "AvgSquaredUpdate": 1e-2 * pos}, {}),
+        "rmsprop": ({"MeanSquare": pos, "Moment": 0.1 * g},
+                    {"momentum": 0.5}),
+        "ftrl": ({"SquaredAccumulator": pos, "LinearAccumulator": 0.1 * g},
+                 {"l1": 1e-5, "l2": 1e-5}),
+        "proximal_gd": ({}, {"l1": 1e-5, "l2": 1e-4}),
+        "proximal_adagrad": ({"Moment": pos}, {"l1": 1e-5, "l2": 1e-4}),
+    }
+    counts = {n: torch.tensor([v], dtype=torch.int64, device=dev)
+              for n, v in (("in_num_accumulates", 4),
+                           ("in_old_num_accumulates", 2),
+                           ("in_num_updates", 16383))}
+    cases["average_accumulates"] = (
+        dict(param=p, in_sum_1=0.5 * p, in_sum_2=0.25 * p, in_sum_3=p,
+             **counts),
+        {"average_window": 0.5, "max_average_window": 5,
+         "min_average_window": 5})
+    out = {}
+    for op, (extra, attrs) in cases.items():
+        inputs = extra if op == "average_accumulates" else {**base, **extra}
+        got = registry.get_kernel(op)(_OpCtx(inputs, attrs))
+        ref = registry.get_kernel(op)(_OpCtx(
+            {k: v.double() if v.is_floating_point() else v
+             for k, v in inputs.items()}, attrs))
+        out[op] = max(
+            float((got[k].double() - ref[k]).abs().max())
+            / max(float(ref[k].double().abs().max()), 1e-30) for k in ref)
+    return out
+
+
+def run_optimizers(config, batch, seq, seed, place, workdir, warm, steps):
+    """bench.py's LM at ``config`` (full width, cut in depth), bf16 O2,
+    trained by each of OPT_RECIPES: ``warm`` + ``steps`` graph steps
+    through Executor.run (ms of the last ``steps``, losses finite), the
+    main path's step profiled (one graph launch; device counters zeroed
+    before it), then from a saved state the step through its graph
+    against the same step op by op (bitwise). ModelAverage: apply, then
+    restore (the parameters back bitwise), then a replay straight after
+    against the same step op by op from that state. Then every optimizer
+    op on the card against float64 (check_optimizer_ops) on the Adam
+    recipe's first FFN weight and its gradient."""
+    import torch
+    from paddle_tpu_torch import Executor, Scope, scope_guard
+
+    keys = FP32_KERNELS + BF16_KERNELS
+    nothing = contextlib.nullcontext
+    res = {"phase": "optimizers", "amp_level": "O2", "config": config,
+           "batch": batch, "seq": seq, "warm": warm, "steps": steps,
+           "recipes": {}}
+    op_inputs = None
+    for name in OPT_RECIPES:
+        t0 = time.perf_counter()
+        main, startup, loss, avg = build_recipe(config, batch, seq, seed,
+                                                name)
+        exe, scope = Executor(place), Scope()
+        exe.run(startup, scope=scope)
+        t = _Trainer(exe, scope, main, loss, config, batch, seq, seed, keys,
+                     workdir)
+
+        def step():
+            return exe.run(main, t.feed, [loss] + t.grads, scope=scope,
+                           return_numpy=False)
+
+        ms, losses = [], []
+        for i in range(warm + steps):
+            t.sync()
+            t1 = time.perf_counter()
+            losses.append(float(step()[0]))
+            if i >= warm:
+                ms.append((time.perf_counter() - t1) * 1e3)
+        got = {"step_ms": ms, "step_ms_mean": float(np.mean(ms)),
+               "losses": losses,
+               "ops": sorted({op.type for op in main.global_block().ops
+                              if op.type in OPT_OP_TYPES})}
+        if t.cuda:
+            _device_counts((), reset=True)
+            prof = profile_call(step, os.path.join(
+                workdir, "optimizers_%s_step_ops.txt" % name))
+            got["launches_per_step"] = _device_counts(keys)
+            got["graph_launches_per_step"] = prof["host_launch_calls"][
+                "graph_launches"]
+        saved = t.save()
+        graph, _ = t.one_step(main, saved, nothing())
+        eager, _ = t.one_step(main, saved, nothing(), eager=True)
+        got["graph_vs_eager"] = graph_vs_eager(graph, eager, {"ok": False})
+        if name == "Adam":
+            p = "lm.l0.ffn.fc1.w"
+            op_inputs = (saved[p], graph[1][p + "@GRAD"].clone())
+        del graph, eager
+        if avg is not None:
+            # one step from the saved state first, so that the scope holds
+            # the step's own state buffers, which apply and restore write
+            t.restore(saved)
+            step()
+            before = {n: scope.find_var(n).clone() for n in t.params}
+            held = {n: scope.find_var(n) for n in t.params}
+            with scope_guard(scope):
+                avg.apply(exe)
+                moved = any(not torch.equal(scope.find_var(n), before[n])
+                            for n in t.params)
+                avg.restore(exe)
+            back = all(torch.equal(scope.find_var(n), before[n])
+                       and scope.find_var(n) is held[n] for n in t.params)
+            state = t.save()
+            outs = step()   # a replay over the restored tensors, in place
+            t.sync()
+            replay = (outs[0], dict(zip(t.grads, outs[1:])),
+                      {n: scope.find_var(n).clone() for n in t.params})
+            ref, _ = t.one_step(main, state, nothing(), eager=True)
+            got["model_average"] = {
+                "apply_moved_params": moved, "restore_bitwise": back,
+                "replay_vs_eager": graph_vs_eager(replay, ref,
+                                                  {"ok": False})}
+            del replay, ref, state, before, held
+        got["seconds"] = time.perf_counter() - t0
+        res["recipes"][name] = got
+        del t, saved, scope
+        _free(exe)
+    adam_ms = res["recipes"]["Adam"]["step_ms_mean"]
+    for got in res["recipes"].values():
+        got["vs_adam"] = got["step_ms_mean"] / adam_ms
+    res["op_rel_err"] = check_optimizer_ops(*op_inputs)
+    res["op_rtol"] = OPT_OP_RTOL
+    del op_inputs
+    bad = []
+    for name, got in res["recipes"].items():
+        if not np.all(np.isfinite(got["losses"])):
+            bad.append((name, "losses", got["losses"]))
+        if not got["graph_vs_eager"]["bitwise"]:
+            bad.append((name, "graph_vs_eager", got["graph_vs_eager"]))
+        ma = got.get("model_average")
+        if ma is not None and not (ma["apply_moved_params"]
+                                   and ma["restore_bitwise"]
+                                   and ma["replay_vs_eager"]["bitwise"]):
+            bad.append((name, "model_average", ma))
+    bad += [(op, "rel_err", e) for op, e in res["op_rel_err"].items()
+            if not e <= OPT_OP_RTOL]
+    if bad:
+        fail("optimizers: %s" % json.dumps(bad))
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 
 def check_launches(phase, res, want, paths):
@@ -4848,6 +5400,61 @@ def main(argv=None):
     lv["gpu"] = smi
     emit(lv)
     torch.cuda.empty_cache()
+
+    # the training surface: the MoE LM, the noam recipe, every optimizer
+    n_layer = TRAIN_CONFIG["n_layer"]
+    none = dict.fromkeys(FP32_KERNELS + BF16_KERNELS, 0)
+    t0 = time.perf_counter()
+    moe = run_moe(dict(TRAIN_CONFIG, moe_experts=MOE_EXPERTS), TRAIN_BATCH,
+                  TRAIN_SEQ, TRAIN_LR, WARM_STEPS, MOE_STEPS, args.seed,
+                  CUDAPlace(0), workdir)
+    moe["seconds"], moe["gpu"] = time.perf_counter() - t0, smi
+    emit(moe)
+    want = {**none, "K1-bf16": n_layer, "K2-dq-bf16": n_layer,
+            "K2-dkv-bf16": n_layer}
+    for key, counts in (("launches_per_step", want),
+                        ("main_path_host_launches", none),
+                        ("host_launches_per_graph_step", none),
+                        ("eager_launches_per_step", want),
+                        ("plain_launches", none)):
+        if moe[key] != counts:
+            fail("moe: %s %s, expected %s" % (key, moe[key], counts))
+    if moe["graph_launches_per_step"] != 1:
+        fail("moe: %s graph launches in the main path's step, expected 1"
+             % moe["graph_launches_per_step"])
+    t0 = time.perf_counter()
+    noam = run_nmt_noam(NMT_CONFIG, NMT_BATCH, NMT_SEQ, NMT_MIN_LEN,
+                        args.seed, CUDAPlace(0), workdir, NOAM_STEPS,
+                        NOAM_LOOP)
+    noam["seconds"], noam["gpu"] = time.perf_counter() - t0, smi
+    noam["fixed_lr_step_ms_mean"] = nmt["O2", 0.0]["step_ms_mean"]
+    emit(noam)
+    n_att = 3 * NMT_CONFIG["n_layer"]
+    want_noam = {**none, "K1-bf16": n_att, "K2-dq-bf16": n_att,
+                 "K2-dkv-bf16": n_att}
+    if noam["launches_per_step"] != want_noam or \
+            noam["main_path_host_launches"] != none or \
+            noam["graph_launches_per_step"] != 1:
+        fail("nmt_noam: launches %s (device), %s from the host, %s graph "
+             "launches; expected %s, none and 1"
+             % (noam["launches_per_step"], noam["main_path_host_launches"],
+                noam["graph_launches_per_step"], want_noam))
+    t0 = time.perf_counter()
+    opts = run_optimizers(dict(TRAIN_CONFIG, n_layer=OPT_LAYERS),
+                          TRAIN_BATCH, TRAIN_SEQ, args.seed, CUDAPlace(0),
+                          workdir, OPT_WARM, OPT_STEPS)
+    opts["seconds"], opts["gpu"] = time.perf_counter() - t0, smi
+    emit(opts)
+    want_opt = {**none, "K1-bf16": OPT_LAYERS, "K2-dq-bf16": OPT_LAYERS,
+                "K2-dkv-bf16": OPT_LAYERS}
+    for name, got in opts["recipes"].items():
+        if got["launches_per_step"] != want_opt or \
+                got["graph_launches_per_step"] != 1:
+            fail("optimizers (%s): launches %s, %s graph launches; "
+                 "expected %s and 1" % (name, got["launches_per_step"],
+                                        got["graph_launches_per_step"],
+                                        want_opt))
+    torch.cuda.empty_cache()
     nmt32, nmt16 = nmt[None, 0.0], nmt["O2", 0.0]
 
     sl = run_slice(FULL_CONFIG, prompt_lens, MAX_NEW, args.seed,
@@ -5006,7 +5613,11 @@ def main(argv=None):
                "lm_fused_qkv_step": lv["fused_qkv_launches_per_step"][
                    "K1-bf16"],
                "lm_unfused_head_step": lv["unfused_head_replay_launches"][
-                   "K1-bf16"]},
+                   "K1-bf16"],
+               "moe_step": moe["launches_per_step"]["K1-bf16"],
+               "nmt_noam_step": noam["launches_per_step"]["K1-bf16"],
+               "optimizers_adam_step": opts["recipes"]["Adam"][
+                   "launches_per_step"]["K1-bf16"]},
               k1b["max_abs_err"], k1b["ms"], k1b["plain_ms"],
               (k1b["bound_ms"], k1b["bound_by"]), k1b["library_ms"],
               plain_err=k1b["plain_err"], err_ratio=k1b["err_ratio"],
@@ -5028,7 +5639,11 @@ def main(argv=None):
                "lm_fused_qkv_step": lv["fused_qkv_launches_per_step"][
                    "K2-dq-bf16"],
                "lm_unfused_head_step": lv["unfused_head_replay_launches"][
-                   "K2-dq-bf16"]},
+                   "K2-dq-bf16"],
+               "moe_step": moe["launches_per_step"]["K2-dq-bf16"],
+               "nmt_noam_step": noam["launches_per_step"]["K2-dq-bf16"],
+               "optimizers_adam_step": opts["recipes"]["Adam"][
+                   "launches_per_step"]["K2-dq-bf16"]},
               bwdb["K2_dq_err"], bwdb["dq_ms"], bwdb["plain_ms"],
               (bwdb["dq_bound_ms"], bwdb["dq_bound_by"]), None,
               err_ratio=bwdb["K2_dq_err_ratio"],
@@ -5045,7 +5660,11 @@ def main(argv=None):
                "lm_fused_qkv_step": lv["fused_qkv_launches_per_step"][
                    "K2-dkv-bf16"],
                "lm_unfused_head_step": lv["unfused_head_replay_launches"][
-                   "K2-dkv-bf16"]},
+                   "K2-dkv-bf16"],
+               "moe_step": moe["launches_per_step"]["K2-dkv-bf16"],
+               "nmt_noam_step": noam["launches_per_step"]["K2-dkv-bf16"],
+               "optimizers_adam_step": opts["recipes"]["Adam"][
+                   "launches_per_step"]["K2-dkv-bf16"]},
               max(bwdb["K2_dk_err"], bwdb["K2_dv_err"]), bwdb["dkv_ms"],
               bwdb["plain_ms"], (bwdb["dkv_bound_ms"], bwdb["dkv_bound_by"]),
               None, err_ratio=max(bwdb["K2_dk_err_ratio"],

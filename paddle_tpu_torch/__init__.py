@@ -20,13 +20,17 @@ dict or by the reader ops: ``layers.py_reader`` -> ``batch`` ->
 ``recordio_convert`` / ``recordio_writer`` -> ``layers.open_files`` ->
 ``batch``, or a multiprocess ``layers.data_loader``) through K1 and the
 flash-attention backward kernels (K2, or K4 with
-``PADDLE_TPU_FLASH_FUSED_BWD=1``). The input path's host runtime
+``PADDLE_TPU_FLASH_FUSED_BWD=1``), with every optimizer of the JAX
+package (and ``ModelAverage``), gradient clipping, weight decay and the
+learning-rate schedules (``layers.noam_decay`` ...), and the
+mixture-of-experts FFN (``transformer_lm(moe_experts=E)``, routed by
+index). The input path's host runtime
 (runtime/runtime.cc: recordio, prefetch, channels) is C++, built with g++
 on first use.
 """
 from . import (backward, clip, framework, inference, initializer, io,
-               layers, observability, optimizer, reader, recordio_writer,
-               regularizer, serving)
+               layers, observability, optimizer, parallel, reader,
+               recordio_writer, regularizer, serving)
 from .backward import append_backward
 from .data_feeder import DataFeeder
 from .executor import Executor
@@ -56,7 +60,8 @@ __all__ = [
     "PredictorServer", "Program", "Scope", "append_backward", "backward",
     "batch", "clip", "default_main_program", "default_startup_program",
     "framework", "global_scope", "inference", "initializer", "io",
-    "layers", "observability", "optimizer", "program_guard", "reader",
+    "layers", "observability", "optimizer", "parallel", "program_guard",
+    "reader",
     "recordio_convert", "recordio_sample_reader", "recordio_writer",
     "regularizer", "scope_guard", "serving", "unique_name",
 ]

@@ -1,8 +1,12 @@
 """Gradient & error clipping (reference: python/paddle/fluid/clip.py); a copy
 of paddle_tpu/clip.py, which the port keeps so that it never imports the
-JAX package. It only appends ops to a Program; the kernels of the ops a set
-clip appends (clip, clip_by_norm, square, reduce_sum, sqrt, ...) are a
-later slice, and the interpreter raises NotImplementedError for them."""
+JAX package. It appends ops to a Program: clip (GradientClipByValue),
+clip_by_norm (GradientClipByNorm), and square, reduce_sum, sum, sqrt,
+fill_constant, elementwise_max, elementwise_div and elementwise_mul
+(GradientClipByGlobalNorm), whose kernels are ops/math.py's. They read
+@GRAD inputs, so under bf16 AMP O2 they stay in fp32 (the interpreter's
+``_o2_eligible``). ErrorClipByValue holds its bounds and appends
+nothing, as in the JAX package."""
 from __future__ import annotations
 
 from .framework.core import Variable

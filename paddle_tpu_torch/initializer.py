@@ -3,8 +3,9 @@
 Each initializer appends an init op (fill_constant / uniform_random /
 gaussian_random) to the startup program, exactly as the JAX package's
 initializers do, so both packages build the same startup program. The
-serving path never runs a startup program (parameters come from an
-export), so the port registers no kernels for the random init ops yet.
+random init ops' kernels are ops/nn.py's ``gaussian_random`` and
+``uniform_random`` (drawn from torch generators: the statistics are the
+JAX package's, the bits are not).
 """
 from __future__ import annotations
 

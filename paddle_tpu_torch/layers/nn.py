@@ -41,6 +41,9 @@ __all__ = [
     "reduce_sum",
     "unstack",
     "sequence_mask",
+    "sum",
+    "autoincreased_step_counter",
+    "moe_ffn",
 ]
 
 # the JAX package's default ``block_k`` attr: it rides the op desc (so
@@ -667,5 +670,78 @@ def sequence_mask(x, maxlen=None, dtype="int64", name=None):
         inputs={"X": [x]},
         outputs={"Y": [out]},
         attrs={"maxlen": maxlen, "out_dtype": convert_dtype(dtype)},
+    )
+    return out
+
+
+def sum(x):
+    """The sum of a list of variables (the ``sum`` op; layers.sums)."""
+    from .tensor import sums
+
+    return sums(x if isinstance(x, (list, tuple)) else [x])
+
+
+def autoincreased_step_counter(counter_name=None, begin=1, step=1):
+    """Persistable int64 step counter incremented once per run (reference
+    nn.py:autoincreased_step_counter): state of the step, so a step with
+    a learning-rate schedule stays one graph replay and ``run_loop(k)``
+    advances it k times."""
+    helper = LayerHelper("global_step_counter")
+    name = counter_name or "@STEP_COUNTER@"
+    counter = helper.create_global_variable(
+        name=name, dtype="int64", shape=(1,), persistable=True
+    )
+    from ..initializer import ConstantInitializer
+
+    helper.set_variable_initializer(counter, ConstantInitializer(begin - 1))
+    helper.append_op(
+        type="increment",
+        inputs={"X": [counter]},
+        outputs={"Out": [counter]},
+        attrs={"step": float(step)},
+    )
+    counter.stop_gradient = True
+    return counter
+
+
+def moe_ffn(x, num_experts, d_ff, capacity_factor=2.0, k=2, ep_axis="ep",
+            param_attr=None, name=None):
+    """Mixture-of-experts FFN block (kernel: ops/attention.py moe_ffn; math:
+    parallel/moe.py, top-k routing with per-expert capacity, by index).
+    The same op desc and parameters (``<name>.gate_w/w1/b1/w2/b2``) as the
+    JAX package's; ``ep_axis`` rides the desc, and the port runs the
+    single-device path (its expert-parallel form waits for multi-device)."""
+    helper = LayerHelper("moe_ffn", name=name)
+    d = x.shape[-1]
+    base = name or helper.name
+
+    def mk(shape, suffix, is_bias=False):
+        import copy
+
+        from ..param_attr import ParamAttr
+
+        if param_attr:
+            # clone per parameter: a shared attr object would get its name
+            # fixed on first use and alias all five params to one variable
+            attr = copy.deepcopy(ParamAttr._to_attr(param_attr))
+            attr.name = "%s.%s" % (attr.name or base, suffix)
+        else:
+            attr = ParamAttr(name="%s.%s" % (base, suffix))
+        return helper.create_parameter(attr=attr, shape=shape,
+                                       dtype=x.dtype, is_bias=is_bias)
+
+    gate_w = mk((d, num_experts), "gate_w")
+    w1 = mk((num_experts, d, d_ff), "w1")
+    b1 = mk((num_experts, d_ff), "b1", is_bias=True)
+    w2 = mk((num_experts, d_ff, d), "w2")
+    b2 = mk((num_experts, d), "b2", is_bias=True)
+    out = helper.create_variable_for_type_inference(x.dtype, shape=x.shape)
+    helper.append_op(
+        type="moe_ffn",
+        inputs={"X": [x], "GateW": [gate_w], "W1": [w1], "B1": [b1],
+                "W2": [w2], "B2": [b2]},
+        outputs={"Out": [out]},
+        attrs={"capacity_factor": float(capacity_factor), "k": int(k),
+               "ep_axis": ep_axis},
     )
     return out

@@ -1,5 +1,5 @@
 """layers.tensor (reference: python/paddle/fluid/layers/tensor.py): the
-tensor builders the serving programs use."""
+tensor builders the serving and training programs use."""
 from __future__ import annotations
 
 import numpy as np
@@ -8,7 +8,7 @@ from ..framework.core import Variable
 from ..framework.dtypes import convert_dtype
 from ..layer_helper import LayerHelper
 
-__all__ = ["create_parameter", "cast", "assign", "fill_constant"]
+__all__ = ["create_parameter", "cast", "sums", "assign", "fill_constant"]
 
 
 def create_parameter(
@@ -31,6 +31,16 @@ def cast(x, dtype):
         outputs={"Out": [out]},
         attrs={"in_dtype": x.dtype, "out_dtype": dtype},
     )
+    return out
+
+
+def sums(input, out=None):
+    helper = LayerHelper("sums")
+    if out is None:
+        out = helper.create_variable_for_type_inference(
+            dtype=helper.input_dtype(), shape=input[0].shape
+        )
+    helper.append_op(type="sum", inputs={"X": input}, outputs={"Out": [out]})
     return out
 
 

@@ -24,8 +24,10 @@ when the layer-creation ORDER matches exactly: build under
 ``unique_name.guard()`` and keep the layer_norm call sequence identical
 (2 per layer + 1 final).
 
-Not ported yet, each raising NotImplementedError: ring attention (queue
-1 item 7, multi-device) and mixture-of-experts FFNs (queue 1 item 6.1).
+``moe_experts > 0`` swaps a decoder layer's dense FFN for a
+mixture-of-experts block (``layers.moe_ffn``, routed by index on one
+device), with the dense path's dropout after it. Not ported yet, raising
+NotImplementedError: ring attention (queue 1 item 7, multi-device).
 """
 from __future__ import annotations
 
@@ -55,12 +57,6 @@ def _ring_unported():
     raise NotImplementedError(
         "ring attention is a later slice of the port (queue 1 item 7, "
         "multi-device)")
-
-
-def _moe_unported():
-    raise NotImplementedError(
-        "mixture-of-experts FFNs are a later slice of the port (queue 1 "
-        "item 6.1)")
 
 
 def positionwise_ffn(x, d_inner, d_model, dropout_rate=0.0, name=None):
@@ -207,9 +203,8 @@ def decoder_layer(x, enc, n_head, d_model, d_inner, dropout_rate,
     """Pre-norm decoder block: causal self-attention over ``tgt_lengths``,
     cross-attention over ``enc`` (already normalized, the
     transformer_encoder's output) and its ``src_lengths`` when given, and
-    a dense FFN, each with a residual."""
-    if moe_experts:
-        _moe_unported()
+    a dense FFN, each with a residual; ``moe_experts > 0`` swaps the
+    dense FFN for a mixture-of-experts block (layers.moe_ffn)."""
     h = _pre_norm(x)
     self_attn = multi_head_attention(
         h, h, n_head, d_model, dropout_rate,
@@ -223,8 +218,15 @@ def decoder_layer(x, enc, n_head, d_model, d_inner, dropout_rate,
             kv_lengths=src_lengths, name=name + ".cross",
         )
         x = layers.elementwise_add(x, cross)
-    ffn = positionwise_ffn(_pre_norm(x), d_inner, d_model, dropout_rate,
-                           name=name + ".ffn")
+    if moe_experts:
+        ffn = layers.moe_ffn(_pre_norm(x), num_experts=moe_experts,
+                             d_ff=d_inner, name=name + ".moe")
+        if dropout_rate:
+            # the dense path drops inside positionwise_ffn
+            ffn = layers.dropout(ffn, dropout_prob=dropout_rate)
+    else:
+        ffn = positionwise_ffn(_pre_norm(x), d_inner, d_model, dropout_rate,
+                               name=name + ".ffn")
     return layers.elementwise_add(x, ffn)
 
 

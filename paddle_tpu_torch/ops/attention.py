@@ -32,6 +32,10 @@ path and the reference the kernels are held against on the card.
 The wrappers run the plain version for CPU tensors; for CUDA tensors they
 launch their kernel or raise, never fall back. Each kernel's launch count
 is the ``launches`` attribute of its wrapper.
+
+The module also registers ``moe_ffn``, as the JAX package's does: its
+math is parallel/moe.py's (no Pallas kernel; plain PyTorch products and
+index moves, as the reference leaves its einsums to XLA).
 """
 from __future__ import annotations
 
@@ -772,3 +776,23 @@ def _fused_attention(ctx):
     return {"Out": FlashAttention.apply(
         q, k, v, ctx.input("Lengths"), causal, ctx.attr("scale", None),
         layout)}
+
+
+@register_op("moe_ffn")
+def _moe_ffn_op(ctx):
+    """Mixture-of-experts FFN (no reference twin; the JAX package's op).
+    Inputs X (B, T, D), GateW (D, E), W1 (E, D, F), B1 (E, F), W2 (E, F, D),
+    B2 (E, D); attrs capacity_factor, k, ep_axis. The single-device path,
+    routed by index (parallel/moe.py): the JAX package's expert-parallel
+    form under an ``ep`` mesh waits for the port's multi-device slice.
+    In no AMP set (as in the JAX package): under O2 X comes as the bf16
+    layer_norm output, the weights as their fp32 parameters."""
+    from ..parallel.moe import MoEParams, moe_ffn_local
+
+    params = MoEParams(
+        gate_w=ctx.input("GateW"), w1=ctx.input("W1"), b1=ctx.input("B1"),
+        w2=ctx.input("W2"), b2=ctx.input("B2"))
+    return {"Out": moe_ffn_local(
+        ctx.input("X"), params,
+        capacity_factor=float(ctx.attr("capacity_factor", 2.0)),
+        k=int(ctx.attr("k", 2)))}

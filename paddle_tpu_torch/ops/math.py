@@ -1,9 +1,12 @@
 """Math / tensor op kernels (counterpart of paddle_tpu/ops/math.py).
 
-The ops of the Transformer's programs: elementwise_add, _mul and _div
-with the reference's axis-broadcast rule, scale, mean, reduce_sum, relu,
-softmax, softmax_with_cross_entropy, mul/matmul, reshape/transpose,
-unstack, gather, lookup_table, cast, assign/assign_value and
+The ops of the Transformer's programs and of the training surface around
+them: the JAX package's three table-driven families whole (elementwise
+binary ops with the reference's axis-broadcast rule; activations and
+other unary maps; comparisons and logical ops, giving bool), clip,
+clip_by_norm, scale, sum, mean, reduce_sum, softmax,
+softmax_with_cross_entropy, mul/matmul, reshape/transpose, unstack,
+gather, lookup_table, cast, assign/assign_value, increment and
 fill_constant. They are plain PyTorch on whatever device their inputs lie
 on; the 2-D products go to ``torch.matmul``, as the JAX package left them
 to XLA. Under bf16 AMP a product takes bf16 operands, sums in fp32 and
@@ -60,8 +63,99 @@ def _elementwise(fn):
 
 
 register_op("elementwise_add")(_elementwise(torch.add))
+register_op("elementwise_sub")(_elementwise(torch.sub))
 register_op("elementwise_mul")(_elementwise(torch.mul))
 register_op("elementwise_div")(_elementwise(torch.div))
+register_op("elementwise_max")(_elementwise(torch.maximum))
+register_op("elementwise_min")(_elementwise(torch.minimum))
+register_op("elementwise_pow")(_elementwise(torch.pow))
+# jnp.mod: the remainder takes the divisor's sign, as torch.remainder's does
+register_op("elementwise_mod")(_elementwise(torch.remainder))
+
+
+# ---------------------------------------------------------------------------
+# activations and other unary maps (reference: activation_op.cc), the JAX
+# package's table
+# ---------------------------------------------------------------------------
+
+
+def _unary(fn):
+    def kern(ctx):
+        return {"Out": fn(ctx.input("X"))}
+
+    return kern
+
+
+def _softplus(x):
+    # jax.nn.softplus is logaddexp(x, 0) everywhere; torch's softplus turns
+    # linear past its threshold
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+register_op("sigmoid")(_unary(torch.sigmoid))
+register_op("logsigmoid")(_unary(torch.nn.functional.logsigmoid))
+register_op("exp")(_unary(torch.exp))
+register_op("relu")(_unary(torch.relu))
+register_op("tanh")(_unary(torch.tanh))
+register_op("tanh_shrink")(_unary(lambda x: x - torch.tanh(x)))
+register_op("sqrt")(_unary(torch.sqrt))
+register_op("abs")(_unary(torch.abs))
+register_op("ceil")(_unary(torch.ceil))
+register_op("floor")(_unary(torch.floor))
+register_op("cos")(_unary(torch.cos))
+register_op("sin")(_unary(torch.sin))
+# half to even, as jnp.round
+register_op("round")(_unary(torch.round))
+register_op("reciprocal")(_unary(lambda x: 1.0 / x))
+register_op("square")(_unary(torch.square))
+register_op("softplus")(_unary(_softplus))
+register_op("softsign")(_unary(lambda x: x / (1 + torch.abs(x))))
+register_op("log")(_unary(torch.log))
+register_op("sign")(_unary(torch.sign))
+
+
+@register_op("clip")
+def _clip(ctx):
+    return {"Out": torch.clamp(ctx.input("X"), ctx.attr("min"),
+                               ctx.attr("max"))}
+
+
+@register_op("clip_by_norm")
+def _clip_by_norm(ctx):
+    """X scaled by max_norm / ||X|| where its norm exceeds max_norm, all on
+    the device (no host read of the norm)."""
+    x = ctx.input("X")
+    max_norm = ctx.attr("max_norm")
+    norm = torch.sqrt(torch.sum(torch.square(x)))
+    scale = torch.where(norm > max_norm,
+                        max_norm / torch.clamp(norm, min=1e-12),
+                        torch.ones_like(norm))
+    return {"Out": x * scale}
+
+
+# ---------------------------------------------------------------------------
+# comparisons and logical ops: bool outputs, as jnp gives
+# ---------------------------------------------------------------------------
+
+
+def _compare(fn):
+    def kern(ctx):
+        return {"Out": fn(ctx.input("X"), ctx.input("Y"))}
+
+    return kern
+
+
+register_op("less_than")(_compare(torch.lt))
+register_op("less_equal")(_compare(torch.le))
+register_op("greater_than")(_compare(torch.gt))
+register_op("greater_equal")(_compare(torch.ge))
+register_op("equal")(_compare(torch.eq))
+register_op("not_equal")(_compare(torch.ne))
+register_op("logical_and")(_compare(torch.logical_and))
+register_op("logical_or")(_compare(torch.logical_or))
+register_op("logical_xor")(_compare(torch.logical_xor))
+register_op("logical_not")(_unary(torch.logical_not))
+register_op("isfinite")(_unary(lambda x: torch.all(torch.isfinite(x))))
 
 
 @register_op("scale")
@@ -73,6 +167,16 @@ def _scale(ctx):
     b = float(ctx.attr("bias", 0.0))
     x = ctx.input("X")
     out = x * s + b if ctx.attr("bias_after_scale", True) else (x + b) * s
+    return {"Out": out}
+
+
+@register_op("sum")
+def _sum(ctx):
+    """The sum of every X, added left to right (reference: sum_op.cc)."""
+    xs = ctx.inputs("X")
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
     return {"Out": out}
 
 
@@ -95,11 +199,6 @@ def _reduce_sum(ctx):
     dims = dim if isinstance(dim, (list, tuple)) else [dim]
     axes = tuple(sorted({int(d) % x.ndim for d in dims}))
     return {"Out": torch.sum(x, dim=axes, keepdim=keep)}
-
-
-@register_op("relu")
-def _relu(ctx):
-    return {"Out": torch.relu(ctx.input("X"))}
 
 
 @register_op("softmax")
@@ -309,6 +408,16 @@ def _load_file(ctx):
         return arr.astype(np.float16) if ctx.attr("load_as_fp16",
                                                   False) else arr
     return {"Out": _host_constant(ctx, read)}
+
+
+@register_op("increment")
+def _increment(ctx):
+    """X + step in X's dtype (a counter stays an integer)."""
+    x = ctx.input("X")
+    step = ctx.attr("step", 1.0)
+    # a Python scalar, not a tensor made from it: a host-to-device copy
+    # could not be captured
+    return {"Out": x + (step if x.is_floating_point() else int(step))}
 
 
 @register_op("fill_constant")

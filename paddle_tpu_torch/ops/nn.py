@@ -44,6 +44,21 @@ def _gaussian_random(ctx):
     return {"Out": out.to(as_torch_dtype(ctx.attr("dtype", "float32")))}
 
 
+@register_op("uniform_random", random=True)
+def _uniform_random(ctx):
+    """U[min, max) of the attr shape on the program's device, drawn from the
+    op's own generator (the Xavier initializer's op, which the parameters
+    with no initializer of their own, the MoE block's among them, draw
+    from at startup). The ``seed`` attr is ignored, as in the JAX
+    package."""
+    gen = ctx.rng()
+    lo, hi = float(ctx.attr("min", -1.0)), float(ctx.attr("max", 1.0))
+    out = torch.rand(list(ctx.attr("shape")), generator=gen,
+                     device=ctx.device, dtype=torch.float32)
+    out = out * (hi - lo) + lo
+    return {"Out": out.to(as_torch_dtype(ctx.attr("dtype", "float32")))}
+
+
 
 def _fixed_key(op, device):
     """The key of an op whose own seed is fixed (``fix_seed``, or a

@@ -83,6 +83,10 @@ class OpContext:
             return default
         return self._env[names[0]]
 
+    def inputs(self, slot: str) -> list:
+        """Every tensor of a slot that holds several (sum's X)."""
+        return [self._env[n] for n in self._op.input(slot)]
+
     def has_input(self, slot: str) -> bool:
         return bool(self._op.input(slot))
 

@@ -2,9 +2,10 @@
 
 A copy of paddle_tpu/regularizer.py, which the port keeps so that it never
 imports the JAX package. append_regularization_ops rewrites each (param,
-grad) pair to grad = grad + penalty_grad, exactly like the reference. The
-kernels of the ops a set regularizer appends (scale, sign) are a later
-slice, and the interpreter raises NotImplementedError for them.
+grad) pair to grad = grad + penalty_grad, exactly like the reference: L2
+appends scale and elementwise_add, L1 sign, scale and elementwise_add
+(kernels: ops/math.py), in fp32 under bf16 AMP O2 (their outputs are
+@GRAD variables).
 """
 from __future__ import annotations
 

@@ -24,9 +24,9 @@ Tolerances (fp32 sums in another order): every step's loss within 1e-5
 abs; every first-step ``@GRAD`` within 1e-4 rel + 1e-6 abs; every
 persistable after the second step within 1e-4 rel + lr/10 abs (Adam turns
 a near-zero gradient's last bits into a different fraction of lr).
-Besides: the builders raise only for ring attention and mixture of
-experts, each naming its queue item; fused q/k/v refuses
-cross-attention as the reference does.
+Besides: the builders raise only for ring attention, naming its queue
+item (mixture of experts builds); fused q/k/v refuses cross-attention as
+the reference does.
 """
 import numpy as np
 import pytest
@@ -250,10 +250,9 @@ def test_builders_raise_only_for_ring_and_moe():
             pt_T.transformer_lm(ids, ids, 16, n_layer=1, n_head=4,
                                 d_model=32, d_inner=64, max_len=8,
                                 use_ring_attention=True)
-        with pytest.raises(NotImplementedError, match="item 6.1"):
-            pt_T.transformer_lm(ids, ids, 16, n_layer=1, n_head=4,
-                                d_model=32, d_inner=64, max_len=8,
-                                moe_experts=4)
+        # mixture of experts builds now (tests/test_torch_moe.py trains it)
+        pt_T.transformer_lm(ids, ids, 16, n_layer=1, n_head=4, d_model=32,
+                            d_inner=64, max_len=8, moe_experts=4)
         with pytest.raises(ValueError, match="SELF-attention"):
             pt_T.multi_head_attention(x, pt_layers.scale(x), 4, 32,
                                       fused_qkv=True)

@@ -56,6 +56,10 @@ def test_port_and_chip_smoke_import_no_jax():
         "import paddle_tpu_torch.observability.tracing\n"
         "import paddle_tpu_torch.observability.timeline\n"
         "import paddle_tpu_torch.ops.sampling\n"
+        "import paddle_tpu_torch.ops.optim, paddle_tpu_torch.ops.math\n"
+        "import paddle_tpu_torch.parallel, paddle_tpu_torch.parallel.moe\n"
+        "import paddle_tpu_torch.clip, paddle_tpu_torch.regularizer\n"
+        "import paddle_tpu_torch.layers.learning_rate_scheduler\n"
         "import chip_smoke\n"
         "from paddle_tpu_torch.runtime import recordio\n"
         "assert recordio.native_available()\n"
@@ -994,3 +998,59 @@ def test_chip_smoke_nmt_and_lm_variants_rehearse_on_cpu(tmp_path):
         assert got["zero_grad_share_of_largest"] <= \
             chip_smoke.AMP_ZERO_GRAD_TOL, got
     assert lv["fused_qkv_replay_launches"] == none
+
+
+# the builders whose appended op types must all have kernels in the port
+_BUILDER_SOURCES = ("layers/*.py", "optimizer.py", "clip.py",
+                    "regularizer.py", "layer_helper.py", "backward.py")
+
+
+def test_every_op_a_ported_builder_appends_is_registered():
+    """Every op type that a ported ``layers``, ``optimizer``, ``clip``,
+    ``regularizer`` or ``learning_rate_scheduler`` function appends (a
+    ``type="..."`` literal, a generated unary or binary layer, a reduce
+    layer) has a kernel in the port, or is one the interpreter runs
+    itself (``autodiff``, ``feed``/``fetch``/``read``)."""
+    from paddle_tpu_torch.framework.interpreter import _SKIP_OPS
+    from paddle_tpu_torch.layers import ops as layer_ops
+    from paddle_tpu_torch.ops.registry import KERNELS
+
+    pat = re.compile(r"""(?:(?<!\w)type=|_make_binary\(|_binary\(|"""
+                     r"""_reduce_layer\()\s*["'](\w+)["']""")
+    pkg = os.path.join(ROOT, "paddle_tpu_torch")
+    appended = set(layer_ops._UNARY_OPS)
+    for pattern in _BUILDER_SOURCES:
+        for path in glob.glob(os.path.join(pkg, pattern)):
+            with open(path) as f:
+                appended |= set(pat.findall(f.read()))
+    for op in ("noam_decay", "append_LARS", "moe_ffn", "sums",
+               "autoincreased_step_counter"):
+        assert hasattr(layers, op), op
+    assert {"increment", "elementwise_pow", "elementwise_min", "sum",
+            "clip_by_norm", "sign", "moe_ffn", "greater_than"} <= appended
+    missing = sorted(appended - set(KERNELS) - set(_SKIP_OPS) - {"autodiff"})
+    assert not missing, missing
+
+
+def test_the_port_registry_is_a_subset_of_the_jax_package():
+    """Every op the port registers is one the JAX package registers (the
+    port adds no op of its own), with the optimizer ops, the math
+    families and the MoE op among them."""
+    import subprocess as sp
+
+    from paddle_tpu_torch.ops.registry import KERNELS
+
+    code = ("import json, paddle_tpu\n"
+            "from paddle_tpu.ops.registry import KERNELS\n"
+            "print(json.dumps(sorted(KERNELS)))\n")
+    r = sp.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+               text=True, timeout=120, env=dict(_cpu_env(),
+                                                JAX_PLATFORMS="cpu"))
+    assert r.returncode == 0, r.stderr
+    ref = set(json.loads(r.stdout.strip().splitlines()[-1]))
+    assert set(KERNELS) <= ref, sorted(set(KERNELS) - ref)
+    assert {"sgd", "momentum", "adamax", "adagrad", "decayed_adagrad",
+            "adadelta", "rmsprop", "ftrl", "proximal_gd", "proximal_adagrad",
+            "average_accumulates", "clip", "clip_by_norm", "sum",
+            "increment", "moe_ffn", "isfinite", "elementwise_mod"} <= \
+        set(KERNELS)
